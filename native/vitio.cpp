@@ -1,8 +1,8 @@
 // vitio — native host-side runtime for viterbi_tpu.
 //
-// The TPU-native analog of the reference DLL's host-side native layer
+// The analog of the reference DLL's host-side native layer
 // (lifecycle, buffer plumbing, harness encoder — dllmain.cpp,
-// viterbi-benchmark.cpp in /root/reference). The TPU does the decoding;
+// viterbi-benchmark.cpp of the reference). The accelerator decodes;
 // this library keeps the host side off the Python interpreter's critical
 // path: bit-true encoding for fixture/loopback generation, MSB-first bit
 // packing, superframe (de)interleaving, generic depuncturing, and a

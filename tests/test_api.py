@@ -143,7 +143,7 @@ def test_config_override_semantics(tmp_path, monkeypatch):
     config_mod.write_variant(0)
     viterbi_tpu.initialize()
     assert dispatch.state().variant == 0
-    # Force variant 2 (pallas) — unsupported on CPU, keep automatic.
+    # Force variant 2 (retired: no kernel anywhere) — keep automatic.
     config_mod.write_variant(2)
     viterbi_tpu.initialize()
     assert dispatch.state().variant == auto
@@ -203,36 +203,34 @@ def test_wake_up_ladder_and_compile_cache(tmp_path, monkeypatch):
         assert np.array_equal(viterbi_tpu.last_output(), np.packbits(bits))
 
 
-def test_device_speed_test_runs_off_tpu():
+def test_device_speed_test_runs_on_cpu():
     """The tuner's device-resident timing helper must run (and return a
-    sane rate) for the pure-JAX variants on the CPU backend."""
+    sane rate) for the XLA variants on the CPU backend."""
     from viterbi_tpu.harness import benchmark
     rate = benchmark.device_speed_test(1, loops=2, batch=4, framebits=96)
     assert rate > 0
 
 
 def test_batch_decode_variants_agree():
-    """All four decode variants — including the Pallas ones, exercised
-    through the real dispatch path via the ``interpret=1`` config key —
-    must produce identical, golden-exact decodes on identical noise
-    (the reference's cross-ISA parity test, viterbi-benchmark.cpp:
-    302,374)."""
+    """Every decode variant this backend supports, selected through the
+    real dispatch path, must produce identical, golden-exact decodes on
+    identical noise (the reference's cross-ISA parity test,
+    viterbi-benchmark.cpp:302,374)."""
     framebits = 192
     from viterbi_tpu.harness import channel
     bits, syms = channel.make_frames(3, framebits, seed=9)
-    cfg_path = config_mod.ensure_config_file()
-    with open(cfg_path, "a") as f:
-        f.write("interpret=1\n")
     outs = {}
-    for v in range(4):
+    caps = dispatch.get_caps()
+    supported = [v for v in range(4) if dispatch._variant_supported(v, caps)]
+    assert {0, 1} <= set(supported)
+    for v in supported:
         config_mod.write_variant(v)
         viterbi_tpu.initialize()
-        assert dispatch.state().variant == v, \
-            f"variant {v} not selectable with interpret=1"
+        assert dispatch.state().variant == v
         ret, outs[v] = viterbi_tpu.deconvolve_batch(framebits, syms)
         assert ret == 0
     expect = np.stack([golden.deconvolve(framebits, s) for s in syms])
-    for v in range(4):
+    for v in supported:
         assert np.array_equal(outs[v], expect), f"variant {v} mismatch"
 
 
@@ -458,47 +456,27 @@ def test_partial_prefix_write_multidim_noncontiguous():
 def test_deconvolve_batch_packed_ingest():
     """deconvolve_batch(packed=True): the host-packed 1-byte/symbol
     production ingest layout decodes identically to the unpacked call
-    on every variant (fused consumes it natively, others unpack)."""
-    from viterbi_tpu.ops import acs_pallas
-
-    framebits = 96
+    on every supported variant, on and off the byte grid."""
     from viterbi_tpu.harness import channel
-    bits, syms = channel.make_frames(3, framebits, seed=19)
-    syms = syms.astype(np.int32)
-    expect = np.stack([golden.deconvolve(framebits, s) for s in syms])
-    packed = acs_pallas.pack_symbols_host(syms)
+    from viterbi_tpu.ops import packing
 
-    cfg_path = config_mod.ensure_config_file()
-    with open(cfg_path, "a") as f:
-        f.write("interpret=1\n")
-    for v in range(4):
-        config_mod.write_variant(v)
-        viterbi_tpu.initialize()
-        ret, out = viterbi_tpu.deconvolve_batch(framebits, packed,
-                                                packed=True)
-        assert ret == 0
-        assert np.array_equal(out, expect), f"variant {v}"
+    caps = dispatch.get_caps()
+    for framebits in (96, 50):
+        bits, syms = channel.make_frames(3, framebits, seed=19)
+        syms = syms.astype(np.int32)
+        expect = np.stack([golden.deconvolve(framebits, s) for s in syms])
+        packed = packing.pack_symbols_host(syms)
+        for v in range(4):
+            if not dispatch._variant_supported(v, caps):
+                continue
+            config_mod.write_variant(v)
+            viterbi_tpu.initialize()
+            ret, out = viterbi_tpu.deconvolve_batch(framebits, packed,
+                                                    packed=True)
+            assert ret == 0
+            assert np.array_equal(out, expect), f"variant {v}"
     # short packed buffer: validation error, not a crash
     viterbi_tpu.initialize()
-    assert viterbi_tpu.deconvolve_batch(framebits, packed[:, :50],
+    assert viterbi_tpu.deconvolve_batch(96, packed[:, :50],
                                         packed=True) == (1, None)
     viterbi_tpu.initialize()
-
-
-def test_pallas_variant_off_grid_framebits_fallback():
-    """The `pallas` rung's decision-word walk needs 24 | framebits; an
-    off-grid size (64) must fall back to the blocked traceback through
-    the real dispatch path, still golden-exact."""
-    framebits = 64
-    rng = np.random.default_rng(23)
-    bits = rng.integers(0, 2, (2, framebits), dtype=np.uint8)
-    syms = np.stack([golden.hard_to_soft(golden.encode(b)) for b in bits])
-    cfg_path = config_mod.ensure_config_file()
-    with open(cfg_path, "a") as f:
-        f.write("interpret=1\n")
-    config_mod.write_variant(2)            # pallas
-    viterbi_tpu.initialize()
-    assert dispatch.state().variant == 2
-    ret, out = viterbi_tpu.deconvolve_batch(framebits, syms)
-    assert ret == 0
-    assert np.array_equal(out, np.packbits(bits, axis=1))

@@ -1,6 +1,6 @@
-"""Distributed-runtime init (parallel.distributed) and the multi-device
-scaling sweep (harness.scaling) — the SURVEY §2.7 "distributed
-communication backend" slot and the BASELINE ≥85% efficiency artifact.
+"""Distributed-runtime init (parallel.distributed) — the SURVEY §2.7
+"distributed communication backend" slot — and the streaming ring
+across a real process boundary (two CPU processes).
 """
 
 import os
@@ -120,8 +120,7 @@ _STREAM_WORKER = textwrap.dedent("""
         data_np.shape, rep, lambda idx: data_np[idx])
     g_tail = jax.make_array_from_callback(
         tail_np.shape, rep, lambda idx: tail_np[idx])
-    decode = streaming.make_stream_decoder(mesh, stream_bits,
-                                           use_pallas=False)
+    decode = streaming.make_stream_decoder(mesh, stream_bits)
     out = decode(g_data, g_tail)
 
     # whole-stream oracle on the local device (bit-exact vs golden by
@@ -209,30 +208,3 @@ def test_two_process_streaming_four_deep_ring(tmp_path):
     boundary."""
     _run_two_process(tmp_path, _STREAM_WORKER, "STREAM_OK", timeout=300,
                      local_devices=2)
-
-
-def test_scaling_sweep_within_predicted_envelope():
-    """The scaling sweep (BASELINE config 5) on the virtual 8-device
-    mesh must land inside the machine's PREDICTED efficiency envelope
-    (VERDICT r4 weak #6: the old 0.05..1.5 gate verified only that the
-    code ran; the envelope — ~flat total rate once host cores are
-    oversubscribed — is falsifiable: a sharding that serializes and
-    adds per-shard overhead falls below it). Recorded artifact:
-    SCALING_r02.json; the on-pod bounds live in SCALING_MODEL.json.
-
-    Shapes must be big enough that COMPUTE (not per-shard dispatch)
-    dominates: at framebits=192 the round-5 select-form blocked
-    traceback made the 1-device run so cheap that fixed mesh overhead
-    pushed n>=2 below the flat-total floor — a shape artifact, not a
-    sharding defect (framebits=768 sits well inside the envelope at
-    the same wall time)."""
-    from viterbi_tpu.harness import scaling
-    results = scaling.sweep(frames_per_device=8, framebits=768, loops=2)
-    assert set(results) == {1, 2, 4, 8}
-    assert results[1]["efficiency"] == 1.0
-    total_1 = results[1]["mbit_s"]
-    for n, r in results.items():
-        lo, hi = r["predicted_envelope"]
-        assert lo <= r["efficiency"] <= hi, (n, r)
-        # total throughput must not collapse below ~flat as shards grow
-        assert r["mbit_s"] >= 0.85 * total_1, (n, r)

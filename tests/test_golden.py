@@ -1,7 +1,7 @@
 """Golden-model self-consistency: encoder, Viterbi oracle, RS oracle.
 
 These tests pin the numerics contract of SURVEY.md §2.1/§2.2 that every
-TPU kernel is later diffed against.
+decode kernel is later diffed against.
 """
 
 import numpy as np
@@ -145,3 +145,18 @@ def test_rs_superframe_interleaved():
     assert errors == 2
     out2 = out.reshape(C.RS_KK, rs_dims).T
     assert np.array_equal(out2, msgs)
+
+
+@pytest.mark.parametrize("framebits", [96, 50, 768])
+def test_deconvolve_batch_matches_scalar(framebits):
+    """The frame-vectorized oracle is the scalar one, frame by frame."""
+    _, syms = channel.make_frames(5, framebits, seed=framebits + 3)
+    want = np.stack([golden.deconvolve(framebits, s) for s in syms])
+    assert np.array_equal(golden.deconvolve_batch(framebits, syms), want)
+
+
+def test_encode_batch_matches_golden_encoder():
+    rng = np.random.default_rng(8)
+    bits = rng.integers(0, 2, (4, 100), dtype=np.uint8)
+    want = np.stack([golden.encode(b) for b in bits])
+    assert np.array_equal(channel.encode_batch(bits), want)

@@ -21,20 +21,18 @@ def test_data_parallel_sharded_decode_matches_golden():
     assert np.array_equal(out, expect)
 
 
-@pytest.mark.parametrize("use_pallas", [False, True])
+@pytest.mark.parametrize("overlap", [None, 48])
 @pytest.mark.parametrize("n_data,n_seq", [(1, 8), (2, 4)])
-def test_streaming_matches_whole_decode(n_data, n_seq, use_pallas):
-    """Streaming decode (XLA and Pallas fast paths) must be bit-equal
-    to the whole-stream golden decode; the Pallas path runs in
-    interpreter mode on the CPU test mesh."""
+def test_streaming_matches_whole_decode(n_data, n_seq, overlap):
+    """Streaming decode must be bit-equal to the whole-stream golden
+    decode, with the default and a short explicit overlap."""
     from viterbi_tpu.parallel import mesh as mesh_mod, streaming
     framebits = 384 * n_seq          # per-device block 384 bits
     B = 2 * n_data
     bits, syms = channel.make_frames(B, framebits, seed=n_seq)
     mesh = mesh_mod.make_mesh(n_data=n_data, n_seq=n_seq)
     out = np.asarray(streaming.decode_stream(
-        syms.astype(np.int32), framebits, mesh,
-        use_pallas=use_pallas, interpret=use_pallas))
+        syms.astype(np.int32), framebits, mesh, overlap=overlap))
     expect = np.stack([golden.deconvolve(framebits, s) for s in syms])
     assert np.array_equal(out, expect)
 
@@ -55,67 +53,36 @@ def _whole_stream_decode(syms, stream_bits):
     return np.asarray(whole(jnp.asarray(syms)))
 
 
-def test_streaming_production_scale_xla():
-    """Production shape (VERDICT r2 weak #3): 3072 data bits per device
-    x 8 devices, B=64 noisy 3 dB frames — streaming must equal the
-    whole-stream decode bit-for-bit."""
+@pytest.mark.parametrize("B,seed", [(64, 5), (8, 6)])
+def test_streaming_production_scale_xla(B, seed):
+    """Production shape: 3072 data bits per device x 8 devices, noisy
+    3 dB frames — streaming must equal the whole-stream decode
+    bit-for-bit."""
     from viterbi_tpu.parallel import mesh as mesh_mod, streaming
     stream_bits = 3072 * 8
-    B = 64
-    bits, syms = channel.make_frames(B, stream_bits, seed=5)
+    bits, syms = channel.make_frames(B, stream_bits, seed=seed)
     syms = syms.astype(np.int32)
     mesh = mesh_mod.make_mesh(n_data=1, n_seq=8)
-    out = np.asarray(streaming.decode_stream(syms, stream_bits, mesh,
-                                             use_pallas=False))
+    out = np.asarray(streaming.decode_stream(syms, stream_bits, mesh))
     assert np.array_equal(out, _whole_stream_decode(syms, stream_bits))
 
 
-def test_streaming_production_scale_pallas():
-    """The Pallas register-exchange streaming path at the production
-    block size (3072 bits/device, 8 devices), interpret mode on the CPU
-    mesh; B kept small for interpreter speed."""
-    from viterbi_tpu.parallel import mesh as mesh_mod, streaming
-    stream_bits = 3072 * 8
-    B = 8
-    bits, syms = channel.make_frames(B, stream_bits, seed=6)
-    syms = syms.astype(np.int32)
-    mesh = mesh_mod.make_mesh(n_data=1, n_seq=8)
-    out = np.asarray(streaming.decode_stream(syms, stream_bits, mesh,
-                                             use_pallas=True,
-                                             interpret=True))
-    assert np.array_equal(out, _whole_stream_decode(syms, stream_bits))
-
-
-def test_streaming_small_blocks_clamp_default_overlap():
+@pytest.mark.parametrize("block_bits,seed", [(64, 11), (48, 12)])
+def test_streaming_small_blocks_clamp_default_overlap(block_bits, seed):
     """Per-device blocks smaller than DEFAULT_OVERLAP must clamp the
-    default instead of asserting (ADVICE r3); an explicit oversized
-    overlap still raises a descriptive error."""
+    default instead of asserting; an explicit oversized overlap still
+    raises a descriptive error."""
     from viterbi_tpu.parallel import mesh as mesh_mod, streaming
-    framebits = 64 * 8               # tb_block 64 < DEFAULT_OVERLAP 120
-    bits, syms = channel.make_frames(4, framebits, seed=11)
+    framebits = block_bits * 8       # tb_block < DEFAULT_OVERLAP 120
+    bits, syms = channel.make_frames(4, framebits, seed=seed)
     mesh = mesh_mod.make_mesh(n_data=1, n_seq=8)
     out = np.asarray(streaming.decode_stream(
-        syms.astype(np.int32), framebits, mesh, use_pallas=False))
+        syms.astype(np.int32), framebits, mesh))
     expect = np.stack([golden.deconvolve(framebits, s) for s in syms])
     assert np.array_equal(out, expect)
     with pytest.raises(ValueError, match="overlap"):
         streaming.decode_stream(syms.astype(np.int32), framebits, mesh,
-                                overlap=96, use_pallas=False)
-
-
-def test_streaming_small_blocks_pallas_ckpt_alignment():
-    """The default-overlap clamp must also survive the Pallas path's
-    checkpoint rounding (round-4 review: rounding UP pushed the clamped
-    overlap back above tb_block; defaults now align DOWN)."""
-    from viterbi_tpu.parallel import mesh as mesh_mod, streaming
-    framebits = 48 * 8               # tb_block 48, ckpt 18: clamp + align
-    bits, syms = channel.make_frames(2, framebits, seed=12)
-    mesh = mesh_mod.make_mesh(n_data=1, n_seq=8)
-    out = np.asarray(streaming.decode_stream(
-        syms.astype(np.int32), framebits, mesh,
-        use_pallas=True, interpret=True))
-    expect = np.stack([golden.deconvolve(framebits, s) for s in syms])
-    assert np.array_equal(out, expect)
+                                overlap=96)
 
 
 def test_streaming_noiseless_long_stream():
@@ -132,60 +99,54 @@ def test_streaming_noiseless_long_stream():
 
 def test_streaming_tiny_blocks_raise_descriptive_errors():
     """Blocks too small for the mechanism must raise the descriptive
-    'use more data bits per device' error, not an opaque assert
-    (advisor r4: tb_block=12 -> ckpt=18 > block on the Pallas path)."""
+    'use more data bits per device' error, not an opaque assert."""
     from viterbi_tpu.parallel import mesh as mesh_mod, streaming
     mesh = mesh_mod.make_mesh(n_data=1, n_seq=8)
-    for framebits, kw in ((12 * 8, dict(use_pallas=True, interpret=True)),
-                          (12 * 8, dict(use_pallas=False)),
-                          (30 * 8, dict(use_pallas=True, interpret=True))):
+    for framebits in (12 * 8, 30 * 8):
         bits, syms = channel.make_frames(2, framebits, seed=13)
         with pytest.raises(ValueError, match="more data bits per device"):
-            streaming.decode_stream(syms.astype(np.int32), framebits,
-                                    mesh, **kw)
+            streaming.decode_stream(syms.astype(np.int32), framebits, mesh)
 
 
-@pytest.mark.parametrize("use_pallas", [False, True])
-def test_local_stream_decoder_matches_whole(use_pallas):
+@pytest.mark.parametrize("overlap", [None, 48])
+def test_local_stream_decoder_matches_whole(overlap):
     """Single-device virtual-ring streaming (blocks folded into the
-    batch axis, VERDICT r4 next #2): bit-equal to the whole-stream
-    decode on noisy 3 dB frames."""
+    batch axis): bit-equal to the whole-stream decode on noisy 3 dB
+    frames, with the default and a short explicit overlap."""
     from viterbi_tpu.parallel import streaming
     n_blocks = 4
     stream_bits = 768 * n_blocks
     B = 2
     bits, syms = channel.make_frames(B, stream_bits, seed=31)
     syms = syms.astype(np.int32)
-    dec = streaming.make_local_stream_decoder(
-        stream_bits, n_blocks, use_pallas=use_pallas,
-        interpret=use_pallas)
+    dec = streaming.make_local_stream_decoder(stream_bits, n_blocks,
+                                              overlap=overlap)
     out = np.asarray(dec(syms[:, :4 * stream_bits],
                          syms[:, 4 * stream_bits:]))
     assert np.array_equal(out, _whole_stream_decode(syms, stream_bits))
 
 
-def test_local_stream_decoder_long_stream_pallas():
+def test_local_stream_decoder_long_stream():
     """A 24576-bit stream (2.7x MAX_FRAMEBITS) through the local
-    decoder's Pallas path — the 1-chip mechanism for streams the
-    reference cannot represent in one call."""
+    decoder — the one-device mechanism for streams the reference cannot
+    represent in one call."""
     from viterbi_tpu.parallel import streaming
     n_blocks = 8
     stream_bits = 3072 * n_blocks
     bits, syms = channel.make_frames(2, stream_bits, seed=32)
     syms = syms.astype(np.int32)
-    dec = streaming.make_local_stream_decoder(
-        stream_bits, n_blocks, use_pallas=True, interpret=True)
+    dec = streaming.make_local_stream_decoder(stream_bits, n_blocks)
     out = np.asarray(dec(syms[:, :4 * stream_bits],
                          syms[:, 4 * stream_bits:]))
     assert np.array_equal(out, _whole_stream_decode(syms, stream_bits))
 
 
 @pytest.mark.parametrize("chunk_frames", [1, 5])
-@pytest.mark.parametrize("use_pallas", [False, True])
-def test_stream_session_matches_one_shot(chunk_frames, use_pallas):
-    """Chunked-arrival StreamSession (VERDICT r4 next #4): pushing 24 ms
-    frames and flushing must reproduce the one-shot decode bit for bit
-    on noisy 3 dB streams, for every chunk size."""
+@pytest.mark.parametrize("overlap", [120, 48])
+def test_stream_session_matches_one_shot(chunk_frames, overlap):
+    """Chunked-arrival StreamSession: pushing 24 ms frames and flushing
+    must reproduce the one-shot decode bit for bit on noisy 3 dB
+    streams, for every chunk size and lookahead."""
     from viterbi_tpu.parallel.session import StreamSession
     framebits = 768
     n_frames = 10
@@ -195,7 +156,7 @@ def test_stream_session_matches_one_shot(chunk_frames, use_pallas):
     syms = syms.astype(np.int32)
     data, tail = syms[:, :4 * stream_bits], syms[:, 4 * stream_bits:]
 
-    sess = StreamSession(B, use_pallas=use_pallas, interpret=use_pallas)
+    sess = StreamSession(B, overlap=overlap)
     outs = []
     step = 4 * framebits * chunk_frames
     for i in range(0, data.shape[1], step):
@@ -218,7 +179,7 @@ def test_stream_session_tiny_pushes_and_validation():
     bits, syms = channel.make_frames(B, framebits, seed=43)
     syms = syms.astype(np.int32)
     data, tail = syms[:, :4 * framebits], syms[:, 4 * framebits:]
-    sess = StreamSession(B, use_pallas=False)
+    sess = StreamSession(B)
     outs = []
     # irregular even-step chunks: 50, 96, 238, then the rest
     cuts = [0, 200, 584, 1536, data.shape[1]]
@@ -243,7 +204,7 @@ def test_stream_session_custom_overlap():
     stream_bits = framebits * n_frames
     bits, syms = channel.make_frames(B, stream_bits, seed=51)
     syms = syms.astype(np.int32)
-    sess = StreamSession(B, overlap=48, use_pallas=False)
+    sess = StreamSession(B, overlap=48)
     outs = []
     step = 4 * framebits
     for i in range(0, 4 * stream_bits, step):

@@ -64,3 +64,21 @@ def test_noiseless_batch_roundtrip():
     syms = np.stack([golden.hard_to_soft(golden.encode(b)) for b in bits])
     out, _ = _jax_decode(framebits, syms)
     assert np.array_equal(out, np.packbits(bits, axis=1))
+
+
+def test_pack_symbols_host_matches_device():
+    import jax.numpy as jnp
+    from viterbi_tpu.ops import packing
+    rng = np.random.default_rng(3)
+    syms = rng.integers(0, 256, (3, 4 * 54), dtype=np.int32)
+    want = np.asarray(packing.pack_symbols(jnp.asarray(syms), 54))
+    assert np.array_equal(packing.pack_symbols_host(syms), want)
+
+
+def test_unpack_words_inverts_packing():
+    import jax.numpy as jnp
+    from viterbi_tpu.ops import packing
+    rng = np.random.default_rng(4)
+    syms = rng.integers(0, 256, (2, 4 * 30), dtype=np.int32)
+    words = jnp.asarray(packing.pack_symbols_host(syms))
+    assert np.array_equal(np.asarray(packing.unpack_words(words)), syms)

@@ -1,11 +1,12 @@
-"""viterbi_tpu — a TPU-native forward-error-correction framework.
+"""viterbi_tpu — a DAB forward-error-correction framework in JAX.
 
-A from-scratch JAX/XLA/Pallas rebuild of the capabilities of
+A from-scratch JAX/XLA rebuild, with a CUDA decode kernel for Hopper
+GPUs, of the capabilities of
 ``viterbi.dll`` (the SIMD FEC engine of the QIRX-SDR DAB/DAB+ receiver):
 
   * ``deconvolve`` — soft-decision Viterbi decoding of the DAB mother
     code (K=7, rate 1/4, 64 states), batched over frames and sharded
-    over TPU meshes,
+    over device meshes,
   * ``rs_check_superframe`` — RS(120,110) GF(256) superframe
     check/correct, vectorized over interleaved codewords,
   * lifecycle/config: ``initialize``, ``get_caps``, ``wake_up``.

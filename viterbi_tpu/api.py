@@ -1,4 +1,4 @@
-"""L4 public API — the TPU-native twin of the DLL export surface
+"""L4 public API — the JAX twin of the DLL export surface
 (viterbi.def:4-8): ``deconvolve``, ``rs_check_superframe``,
 ``initialize``, ``get_caps``, ``wake_up``.
 
@@ -14,7 +14,7 @@ Return-code contracts match the reference exactly:
     (dllmain.cpp:156-160).
 
 Batched entry points (``deconvolve_batch``, ``rs_decode_blocks``) are
-the TPU-idiomatic fast path; the scalar signatures exist for drop-in
+the accelerator's fast path; the scalar signatures exist for drop-in
 behavioral parity and for the fault-injection tests.
 """
 
@@ -138,7 +138,7 @@ def _decode_arbitrary(symbols, framebits: int) -> np.ndarray:
 
     Performance is irrelevant here (no DAB framebits is off-grid —
     framebits = bitrate*24); the simple XLA forward + scan traceback
-    keeps the contract without a Pallas layout for every parity.
+    keeps the contract.
     """
     import jax.numpy as jnp
 
@@ -157,62 +157,26 @@ def _decode_arbitrary(symbols, framebits: int) -> np.ndarray:
         traceback.chainback_scan(decisions[:nsteps], framebits))
 
 
-def _decode_batch(symbols: np.ndarray, framebits: int) -> np.ndarray:
-    """Dispatch a [B, 4*(framebits+6)] int array through the selected
-    variant. Returns uint8[B, ceil(framebits/8)] packed bytes."""
+def _decode_batch(symbols: np.ndarray, framebits: int,
+                  packed: bool = False) -> np.ndarray:
+    """Dispatch a [B, 4*(framebits+6)] int array (or packed words, see
+    ``deconvolve_batch``) through the selected variant. Returns
+    uint8[B, ceil(framebits/8)] packed bytes."""
     import jax.numpy as jnp
 
-    from .ops import acs, traceback
+    from .ops import decode
 
     if framebits % 8:
+        if packed:
+            symbols = np.ascontiguousarray(symbols, dtype=np.int32) \
+                .view(np.uint8).reshape(symbols.shape[0], -1)
         return _decode_arbitrary(symbols, framebits)
-    st = dispatch.state()
-    syms = jnp.asarray(symbols, dtype=jnp.int32)
-    variant = dispatch.VARIANTS[st.variant]
-    interpret = st.config.interpret and not (st.caps & dispatch.CAP_TPU)
-    if variant == "pallas_fused":
-        # register-exchange ACS + checkpoint-walk traceback (no
-        # decisions array) — the fastest path (docs/KERNELS.md)
-        from .ops import acs_pallas
-        return np.asarray(acs_pallas.decode(syms, framebits,
-                                            interpret=interpret))
-    if variant == "pallas":
-        # decisions-kernel ACS (reference 2xu32 word layout,
-        # viterbi.h:89-92) + Pallas decision-word traceback (the
-        # blocked fallback covers off-DAB-grid shapes)
-        from .ops import acs_pallas
-        decisions, _ = acs_pallas.forward(syms, framebits + C.TAIL_BITS,
-                                          interpret=interpret)
-        if framebits % 24 == 0:
-            return np.asarray(traceback.chainback_words_pallas(
-                decisions, framebits, interpret=interpret))
-        block = st.config.traceback_block
-        if framebits % block != 0:
-            block = next(b for b in (64, 48, 32, 24, 16, 8, 4, 2, 1)
-                         if framebits % b == 0)
-        return np.asarray(traceback.chainback_blocked(decisions, framebits,
-                                                      block=block))
-    if st.caps & dispatch.CAP_TPU:
-        # the jax_* rungs are distinct TRACEBACK strategies; their ACS
-        # forward takes the Pallas decisions kernel whenever the
-        # hardware supports it — a shipped rung never runs a slower
-        # forward than the backend allows, mirroring the reference
-        # ladder where every shipped kernel uses the best ISA for its
-        # job and the slow SSE4.1 was disabled outright
-        # (deconvolve.cpp:443-545; VERDICT r4 next #1)
-        from .ops import acs_pallas
-        decisions, _ = acs_pallas.forward(syms, framebits + C.TAIL_BITS)
-    else:
-        decisions, _ = acs.forward(syms, framebits + C.TAIL_BITS)
-    if variant == "jax_blocked":
-        block = st.config.traceback_block
-        if framebits % block != 0:
-            block = next(b for b in (64, 48, 32, 24, 16, 8, 4, 2, 1)
-                         if framebits % b == 0)
-        out = traceback.chainback_blocked(decisions, framebits, block=block)
-    else:
-        out = traceback.chainback_scan(decisions, framebits)
-    return np.asarray(out)
+    variant = dispatch.variant()
+    # a host cast (wrapping): packed words may exceed int32's range
+    syms = jnp.asarray(np.ascontiguousarray(symbols, dtype=np.int32))
+    return np.asarray(decode.decode(
+        syms, framebits, variant,
+        block=dispatch.state().config.traceback_block, packed=packed))
 
 
 @faults.guarded(_SAFE)
@@ -262,11 +226,10 @@ def deconvolve_batch(framebits: int, symbols_batch,
 
     ``packed=True`` accepts the host-packed one-int32-per-trellis-step
     layout instead (int32[B, >= framebits+6], symbol j in byte j —
-    ``ops.acs_pallas.pack_symbols_host``; the layout ``native/vitio.cpp``
+    ``ops.packing.pack_symbols_host``; the layout ``native/vitio.cpp``
     produces on ingest). It is a byte-reinterpret of the over-the-wire
     DAB symbol stream and ships 4x fewer bytes per call — the
-    production ingest path. The fused fast path consumes it directly;
-    other variants transparently unpack.
+    production ingest path. Every variant consumes it on the device.
     """
     if symbols_batch is None:
         raise faults.CrashError("null symbol buffer")
@@ -282,31 +245,10 @@ def deconvolve_batch(framebits: int, symbols_batch,
                         packed=int(packed)) as rec:
         if packed:
             rec.capture_symbols(syms[:, :width], source=symbols_batch)
-            out = _decode_batch_packed(syms[:, :width], framebits)
+            out = _decode_batch(syms[:, :width], framebits, packed=True)
         else:
             out = _decode_batch(syms, framebits)
     return 0, out
-
-
-def _decode_batch_packed(packed_syms: np.ndarray,
-                         framebits: int) -> np.ndarray:
-    """Packed-ingest dispatch: fused path consumes the packed layout
-    natively (``packed="bt"``); every other variant (and off-grid
-    framebits) unpacks with a host byte-view (zero arithmetic)."""
-    st = dispatch.state()
-    if (dispatch.VARIANTS[st.variant] == "pallas_fused"
-            and framebits % 8 == 0):
-        import jax.numpy as jnp
-
-        from .ops import acs_pallas
-        interpret = st.config.interpret and not (st.caps & dispatch.CAP_TPU)
-        return np.asarray(acs_pallas.decode(
-            jnp.asarray(np.ascontiguousarray(packed_syms,
-                                             dtype=np.int32)),
-            framebits, packed="bt", interpret=interpret))
-    unpacked = np.ascontiguousarray(packed_syms, dtype=np.int32) \
-        .view(np.uint8).reshape(packed_syms.shape[0], -1)
-    return _decode_batch(unpacked, framebits)
 
 
 @faults.guarded(-1)

@@ -1,6 +1,6 @@
 """L0: trellis / Galois-field constant tables, derived from first principles.
 
-This is the TPU-native analog of the reference's constant layer
+This is the analog of the reference's constant layer
 (``const.asm``, ``dllmain.cpp:124-150`` in /root/reference): instead of
 hand-packed SIMD byte masks we generate the mathematically equivalent
 tables from the code definitions and expose them as NumPy arrays (callers
@@ -127,7 +127,7 @@ def gf256_mul_table() -> np.ndarray:
     """Full 256x256 GF(256) multiplication table (uint8).
 
     Not present in the reference (which multiplies via log/antilog lookups);
-    used by the batched TPU RS kernels where a dense table lets products be
+    kept for batched RS forms where a dense table lets products be
     computed by a single vectorized gather.
     """
     ato_mod, index_of = gf256_tables()

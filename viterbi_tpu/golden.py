@@ -1,4 +1,4 @@
-"""Golden scalar models: the bit-exact oracle for every TPU kernel.
+"""Golden scalar models: the bit-exact oracle for every decode kernel.
 
 Pure NumPy / Python implementations of
 
@@ -12,7 +12,7 @@ Pure NumPy / Python implementations of
     Forney and the reference's return-code contract
     (rschecksf.cpp:64-93, 198-377).
 
-These run on the host and are deliberately simple; every JAX/Pallas
+These run on the host and are deliberately simple; every JAX and CUDA
 kernel in ``viterbi_tpu.ops`` is tested bit-exactly against them
 (SURVEY.md §7.2 step 1).
 """
@@ -133,6 +133,50 @@ def deconvolve(framebits: int, symbols: np.ndarray) -> np.ndarray:
     """Full golden decode: uint8[framebits//8] MSB-first packed bytes."""
     decisions, _ = viterbi_forward(framebits, symbols)
     return chainback(framebits, decisions)
+
+
+def deconvolve_batch(framebits: int, symbols: np.ndarray) -> np.ndarray:
+    """``deconvolve`` vectorized over frames, step for step the same
+    numerics: [B, >=4*(framebits+6)] soft symbols -> uint8[B,
+    ceil(framebits/8)]. Lets large samples be checked in seconds."""
+    nsteps = framebits + C.TAIL_BITS
+    syms = np.asarray(symbols)
+    B = syms.shape[0]
+    s = (syms[:, : C.RATE * nsteps].astype(np.int64) & 0xFF) \
+        .astype(np.int32).reshape(B, nsteps, C.RATE)
+    pol = C.branch_polarity_table().astype(bool)             # [4, 32]
+    metrics = np.full((B, C.NUM_STATES), 63, dtype=np.int32)
+    metrics[:, 0] = 0
+    decisions = np.zeros((nsteps, B, C.NUM_STATES), dtype=np.uint8)
+    sat = lambda x: np.minimum(x, C.METRIC_MAX)
+    for t in range(nsteps):
+        st = s[:, t, :, None]                                # [B, 4, 1]
+        a = np.where(pol[None], 255 - st, st)                # [B, 4, 32]
+        m = (_avg_u8(_avg_u8(a[:, 0], a[:, 1]),
+                     _avg_u8(a[:, 2], a[:, 3])) >> 2) & 63   # [B, 32]
+        cm = 63 - m
+        lo, hi = metrics[:, :32], metrics[:, 32:]
+        p0e, p1e = sat(lo + m), sat(hi + cm)
+        p0o, p1o = sat(lo + cm), sat(hi + m)
+        new = np.empty_like(metrics)
+        new[:, 0::2] = np.minimum(p0e, p1e)
+        new[:, 1::2] = np.minimum(p0o, p1o)
+        decisions[t, :, 0::2] = p1e <= p0e
+        decisions[t, :, 1::2] = p1o <= p0o
+        metrics = new
+        if t % 2 == 1:
+            renorm = metrics[:, :1] > C.RENORMALIZE_THRESHOLD
+            metrics = np.where(renorm,
+                               np.maximum(metrics - C.RENORM_SUB, 0),
+                               metrics)
+    out_bits = np.zeros((B, framebits), dtype=np.uint8)
+    state = np.zeros(B, dtype=np.int64)
+    rows = np.arange(B)
+    for t in range(framebits - 1, -1, -1):
+        k = decisions[t + C.TAIL_BITS, rows, state].astype(np.int64)
+        out_bits[:, t] = k
+        state = (state >> 1) | (k << 5)
+    return np.packbits(out_bits, axis=1)
 
 
 # ---------------------------------------------------------------------------

@@ -16,7 +16,6 @@ from __future__ import annotations
 import numpy as np
 
 from .. import constants as C
-from .. import golden
 
 EBN0_DB = 3.0      # reference operating point (viterbi-benchmark.cpp:60)
 GAIN = 32.0
@@ -40,6 +39,26 @@ def awgn_soft_symbols(hard: np.ndarray, rng: np.random.Generator,
     return np.clip(sample, 0, CLIP).astype(np.uint32)
 
 
+def encode_batch(bits: np.ndarray) -> np.ndarray:
+    """``golden.encode`` vectorized over frames: uint8[B, framebits] ->
+    uint8[B, 4*(framebits+6)] hard symbols, flush bits included.
+    Symbol j of step i is the parity of the taps of generator j over
+    bits i-6..i (zeros before the frame start and in the tail)."""
+    bits = np.asarray(bits, dtype=np.uint8)
+    B, n = bits.shape
+    nsteps = n + C.TAIL_BITS
+    padded = np.concatenate(
+        [np.zeros((B, C.TAIL_BITS), np.uint8), bits,
+         np.zeros((B, C.TAIL_BITS), np.uint8)], axis=1)
+    out = np.zeros((B, nsteps, C.RATE), dtype=np.uint8)
+    for j, poly in enumerate(C.POLYS):
+        for k in range(C.K):
+            if (poly >> k) & 1:
+                out[:, :, j] ^= padded[:, C.TAIL_BITS - k:
+                                       C.TAIL_BITS - k + nsteps]
+    return out.reshape(B, C.RATE * nsteps)
+
+
 def make_frames(nframes: int, framebits: int, seed: int = 0,
                 ebn0_db: float = EBN0_DB):
     """Generate (data_bytes, soft_symbols) for ``nframes`` random frames.
@@ -49,12 +68,9 @@ def make_frames(nframes: int, framebits: int, seed: int = 0,
     """
     rng = np.random.default_rng(seed)
     bits = rng.integers(0, 2, size=(nframes, framebits), dtype=np.uint8)
-    syms = np.empty((nframes, C.RATE * (framebits + C.TAIL_BITS)),
-                    dtype=np.uint32)
-    for i in range(nframes):
-        hard = golden.encode(bits[i])
-        syms[i] = awgn_soft_symbols(hard, rng, ebn0_db)
-    return bits, syms
+    # one noise draw for the whole batch: the same stream, in the same
+    # order, as a draw per frame
+    return bits, awgn_soft_symbols(encode_batch(bits), rng, ebn0_db)
 
 
 def ber_fer(decoded_bytes: np.ndarray, bits: np.ndarray):

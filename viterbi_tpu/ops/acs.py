@@ -1,6 +1,6 @@
 """Batched Viterbi forward pass (add-compare-select) in pure JAX.
 
-TPU-native reformulation of the reference's SIMD ACS kernels
+Batched reformulation of the reference's SIMD ACS kernels
 (deconvolve.cpp:232-412, decon_avx2.asm:43-118): the 16/32-way SIMD
 butterflies become a [batch, 64]-shaped vectorized butterfly; frame
 batching replaces the host app's thread-level parallelism (SURVEY.md

@@ -1,21 +1,21 @@
 """Batched RS(120,110) decoder over GF(256), vectorized across codewords.
 
-TPU-native reformulation of the reference's scalar DECODE_RS
+Batched reformulation of the reference's scalar DECODE_RS
 (rschecksf.cpp:198-377): the serial loop over ``RSDims`` interleaved
 codewords (rschecksf.cpp:74) becomes the batch axis, and every
 data-dependent branch/early-exit of Berlekamp-Massey, Chien and Forney
 becomes masked full-length execution (SURVEY.md §7.3) — results are
 bit-identical to the scalar oracle.
 
-GF(256) arithmetic is fully gather-free at runtime: per-element
+GF(256) arithmetic is gather-free at runtime: instead of per-element
 log/antilog table lookups (the reference's 768-entry pre-reduced
-antilog scheme, dllmain.cpp:124-150 — an x86 LUT optimization) measure
-~34x slower than carryless-multiply chains on TPU (scripts/krs.py), so
-products use bitwise ``gf_mul``, inverses the Fermat ``gf_inv`` (x^254),
-and alpha-powers square-and-multiply over constant alpha^(2^k). The
-tables survive only as host-side data for building the MXU bit-matmul
-matrices (syndromes/Chien). GF arithmetic is exact, so every result is
-bit-identical to the reference's log-form computation.
+antilog scheme, dllmain.cpp:124-150), products use bitwise ``gf_mul``,
+inverses the Fermat ``gf_inv`` (x^254), and alpha-powers
+square-and-multiply over constant alpha^(2^k). Whether a table gather
+is faster on the GPU is not measured yet. The tables survive only as
+host-side data for building the bit-matmul matrices (syndromes/Chien).
+GF arithmetic is exact, so every result is bit-identical to the
+reference's log-form computation.
 """
 
 from __future__ import annotations
@@ -40,14 +40,12 @@ _SYN_EXP = np.array(
 
 
 def _bit_matrices():
-    """GF(2) bit-sliced evaluation matrices for the MXU.
+    """GF(2) bit-sliced evaluation matrices for the matrix unit.
 
     Syndrome and Chien evaluations are GF(2)-LINEAR in the input bits:
     s_i = XOR_j data[j] * alpha^(i*(119-j)) and q(i) = XOR_j
     lam[j] * alpha^(i*j). Expanding bytes into bits turns each into an
-    exact integer matmul (bit-parity = accumulated count mod 2), which
-    the MXU executes ~3 orders of magnitude faster than the equivalent
-    per-element antilog gathers on TPU.
+    exact integer matmul (bit-parity = accumulated count mod 2).
 
     Returns (SYND [960, 80], CHIEN [88, 2040]) uint8 0/1 matrices:
       SYND[(j,a), (i,b)]   = bit b of alpha^((a + i*(119-j)) % 255)
@@ -84,10 +82,13 @@ def _gf2_matmul(bits: jax.Array, m: np.ndarray) -> jax.Array:
     """Exact parity matmul: [B, K] 0/1 @ [K, N] 0/1 -> [B, N] int32 0/1.
 
     bf16 inputs represent 0/1 exactly; f32 accumulation is exact for
-    counts <= 2^24, and parity = count & 1.
+    counts <= 2^24 (here K <= 960), and parity = count & 1. The
+    precision is pinned so no backend may pick a reduced-precision
+    product.
     """
     acc = jnp.dot(bits.astype(jnp.bfloat16),
                   jnp.asarray(m, dtype=jnp.bfloat16),
+                  precision=jax.lax.Precision.HIGHEST,
                   preferred_element_type=jnp.float32)
     return acc.astype(jnp.int32) & 1
 
@@ -107,10 +108,8 @@ def gf_mul(a: jax.Array, b: jax.Array) -> jax.Array:
     """Exact GF(256) product of int32 arrays (values < 256), gather-free.
 
     Carryless polynomial multiply (8 conditional-XOR rounds) followed by
-    reduction mod the field polynomial 0x11D. ~45 elementwise VPU ops —
-    far cheaper on TPU than a log/antilog table gather per element
-    (measured: a [B,10] table gather costs ~34x a [B,10] gf_mul,
-    scripts/krs.py).
+    reduction mod the field polynomial 0x11D: ~45 elementwise ops and
+    no table gather.
     """
     acc = jnp.zeros_like(a)
     for k in range(8):
@@ -177,7 +176,7 @@ def rs_decode_blocks(blocks: jax.Array):
     B = data.shape[0]
     NR = C.RS_NROOTS
 
-    # ---- Syndromes (MXU bit-matmul) --------------------------------------
+    # ---- Syndromes (bit-matmul) ------------------------------------------
     sbits = _gf2_matmul(_byte_bits(data), _SYND_M)           # [B, 80]
     s = jnp.sum(sbits.reshape(B, C.RS_NROOTS, 8)
                 << jnp.arange(8, dtype=jnp.int32), axis=-1)  # [B, 10]
@@ -207,8 +206,7 @@ def rs_decode_blocks(blocks: jax.Array):
         t = lam ^ gf_mul(discr[:, None], shift_b)
 
         upd = (2 * el <= r - 1) & ~zero_d                    # register swap
-        # b(x) <- lambda(x) / discr (Fermat inverse — gathers are ~34x
-        # slower than gf_mul chains on TPU, scripts/krs.py)
+        # b(x) <- lambda(x) / discr (Fermat inverse, gather-free)
         inv_d = gf_inv(discr)                                # [B]
         b_swap = gf_mul(lam, inv_d[:, None])
         new_b = jnp.where(zero_d[:, None], shift_b,
@@ -219,7 +217,7 @@ def rs_decode_blocks(blocks: jax.Array):
 
     deg_lambda = jnp.max(jnp.where(lam != 0, idx[None, :], 0), axis=1)
 
-    # ---- Chien search (MXU bit-matmul over all 255 field elements) -------
+    # ---- Chien search (bit-matmul over all 255 field elements) -----------
     # q(i) = XOR_{j=0..10} lam[j] * alpha^(i*j); zero coefficients
     # contribute nothing, so masking by deg_lambda is unnecessary, and
     # counting all roots equals the reference's abort-at-deg search (a

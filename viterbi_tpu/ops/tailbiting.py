@@ -22,22 +22,14 @@ from . import acs
 from .traceback import _decision_bit, packbits_msb
 
 
-@partial(jax.jit, static_argnames=("framebits", "wrap_steps",
-                                   "use_pallas", "interpret"))
+@partial(jax.jit, static_argnames=("framebits", "wrap_steps"))
 def decode_tailbiting(symbols: jax.Array, framebits: int,
-                      wrap_steps: int = 96, use_pallas: bool = False,
-                      interpret: bool = False) -> jax.Array:
+                      wrap_steps: int = 96) -> jax.Array:
     """Decode tail-biting frames: [B, >=4*framebits] int32 soft symbols
-    -> uint8[B, framebits//8] MSB-first packed bytes.
-
-    ``use_pallas`` runs the main pass through the register-exchange
-    kernel and the anchored checkpoint walk (``tail=0``); the bit
-    recorded at step t IS data bit u_t for t < framebits-6, and the
-    final 6 bits follow the circular convention via ``wrap_last6``
-    (bits of the walk's start state — see chainback_regs_pallas; the
-    anchor register's own low bits differ from the convention when the
-    best path is not circularly consistent). Bit-exact vs the XLA path
-    and golden."""
+    -> uint8[B, framebits//8] MSB-first packed bytes. Bit-exact vs
+    golden, including end-metric ties where the best path is not
+    circularly consistent (the final 6 bits follow the circular
+    convention: decision at step t is data bit (t - 6) mod framebits)."""
     assert wrap_steps % 2 == 0 and wrap_steps <= framebits
     B = symbols.shape[0]
     syms = symbols[:, : C.RATE * framebits].astype(jnp.int32)
@@ -45,18 +37,6 @@ def decode_tailbiting(symbols: jax.Array, framebits: int,
     zero_init = jnp.zeros((B, C.NUM_STATES), dtype=jnp.int32)
     warm = syms[:, C.RATE * (framebits - wrap_steps):]
     _, metrics = acs.forward(warm, wrap_steps, initial_metrics=zero_init)
-
-    if use_pallas:
-        from . import acs_pallas
-        from .traceback import chainback_regs_pallas
-
-        ckpt = acs_pallas.choose_ckpt(framebits)
-        regs, fmet = acs_pallas.forward_regs(
-            syms, framebits, initial_metrics=metrics, interpret=interpret)
-        anchor = jnp.argmin(fmet, axis=1).astype(jnp.int32)
-        return chainback_regs_pallas(regs, framebits, ckpt=ckpt, tail=0,
-                                     anchor=anchor, interpret=interpret,
-                                     wrap_last6=True)
 
     decisions, metrics = acs.forward(syms, framebits,
                                      initial_metrics=metrics)

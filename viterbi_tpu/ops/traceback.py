@@ -5,7 +5,7 @@ The reference's chainback is an inherently serial register walk
 of the terminated trellis, each step reads the decision bit of the
 current state and hops to the predecessor ``(state >> 1) | (bit << 5)``;
 the bit is the decoded data bit. SURVEY.md §7.3 calls out restructuring
-this for the TPU as a hard part.
+this for a batched accelerator as a hard part.
 
 Two implementations, both bit-exact vs. the golden model:
 
@@ -27,14 +27,6 @@ from functools import partial
 
 import jax
 import jax.numpy as jnp
-
-try:
-    import jax.experimental.pallas as pl
-    import jax.experimental.pallas.tpu as pltpu
-    _HAVE_PALLAS = True
-except Exception:  # pragma: no cover
-    pl = pltpu = None
-    _HAVE_PALLAS = False
 
 from .. import constants as C
 
@@ -66,9 +58,8 @@ def packbits_msb(bits: jax.Array) -> jax.Array:
 def _decision_bit(dec_words: jax.Array, state: jax.Array) -> jax.Array:
     """dec_words: [B, 2] uint32; state: [B] int32 -> bit [B] int32.
 
-    Elementwise select over the two words — take_along_axis here lowers
-    to a per-element gather on XLA:TPU (round-5 measurement: the scan
-    traceback spent most of its time in it)."""
+    Elementwise select over the two words instead of a per-element
+    gather (take_along_axis)."""
     w = jax.lax.bitcast_convert_type(dec_words, jnp.int32)
     word = jnp.where(state >= 32, w[:, 1], w[:, 0])
     return (word >> (state & 31)) & 1
@@ -91,8 +82,7 @@ def chainback_scan(decisions: jax.Array, framebits: int) -> jax.Array:
         return state, k
 
     # unroll: the body is a handful of vector ops; per-iteration loop
-    # overhead otherwise dominates on TPU (same rationale as
-    # chainback_regs)
+    # overhead otherwise dominates
     _, ks = jax.lax.scan(step, jnp.zeros(B, dtype=jnp.int32), rev,
                          unroll=8)
     bits = jnp.flip(ks, axis=0).T                     # [B, framebits]
@@ -102,407 +92,6 @@ def chainback_scan(decisions: jax.Array, framebits: int) -> jax.Array:
 # ---------------------------------------------------------------------------
 # Block-parallel traceback
 # ---------------------------------------------------------------------------
-
-
-@partial(jax.jit, static_argnames=("framebits", "ckpt"))
-def chainback_regs(regs: jax.Array, framebits: int,
-                   ckpt: int = 24) -> jax.Array:
-    """Traceback over register-exchange checkpoints
-    (ops.acs_pallas.forward_regs).
-
-    ``regs``: int32[K, 64, B] path-register checkpoints, K =
-    ceil((framebits+6)/ckpt); checkpoint k holds, per state, the last 32
-    survivor input bits as of time min((k+1)*ckpt, framebits+6). The
-    walk visits one checkpoint per step (K sequential steps vs. the
-    reference chainback's framebits), reading 24 decoded bits at a time
-    from the survivor chain; bit-exact vs. decision-word traceback.
-    """
-    nsteps = framebits + C.TAIL_BITS
-    K = regs.shape[0]
-    assert K == -(-nsteps // ckpt)
-    B = regs.shape[2]
-    gap = nsteps - (K - 1) * ckpt          # steps covered by checkpoint K-1
-
-    srow = jax.lax.broadcasted_iota(jnp.int32, (C.NUM_STATES, B), 0)
-
-    def gather_state(reg_k, state):
-        # one-hot multiply + sublane reduce: take_along_axis over the
-        # 64-state axis lowers to pathological code on TPU
-        onehot = (srow == state[None, :]).astype(jnp.int32)
-        return jnp.sum(reg_k * onehot, axis=0)
-
-    # final (possibly partial) checkpoint: state at nsteps is 0
-    r_final = gather_state(regs[K - 1], jnp.zeros(B, jnp.int32))
-    state = (r_final >> gap) & 63
-
-    def step(state, reg_k):
-        r = gather_state(reg_k, state)
-        return (r >> ckpt) & 63, r
-
-    # unroll: the walk body is ~3 vector ops; XLA while-loop overhead per
-    # iteration would otherwise dominate (measured ~6us/step on TPU)
-    _, rs = jax.lax.scan(step, state, regs[: K - 1], reverse=True,
-                         unroll=16)
-
-    # assemble bits: checkpoint k emits u_{k*ckpt + i} = (r >> (ckpt-1-i))&1
-    shifts = jnp.arange(ckpt - 1, -1, -1, dtype=jnp.int32)
-    bits = (rs[:, None, :] >> shifts[None, :, None]) & 1   # [K-1, ckpt, B]
-    bits = bits.reshape((K - 1) * ckpt, B)
-    fshifts = jnp.arange(gap - 1, -1, -1, dtype=jnp.int32)
-    fbits = (r_final[None, :] >> fshifts[:, None]) & 1     # [gap, B]
-    allbits = jnp.concatenate([bits, fbits], axis=0)       # [nsteps, B]
-    return packbits_msb(allbits[:framebits].T)
-
-
-def _regs_bits(rs: jax.Array, framebits: int, ckpt: int,
-               gap: int) -> jax.Array:
-    """Assemble decoded bytes from survivor-register windows.
-
-    ``rs``: int32[K, B] — rs[k] holds the ``ckpt`` (``gap`` for k = K-1)
-    input bits ending at checkpoint k's trellis time. Fully elementwise.
-    """
-    K, B = rs.shape
-    shifts = jnp.arange(ckpt - 1, -1, -1, dtype=jnp.int32)
-    bits = (rs[: K - 1, None, :] >> shifts[None, :, None]) & 1
-    bits = bits.reshape((K - 1) * ckpt, B)
-    fshifts = jnp.arange(gap - 1, -1, -1, dtype=jnp.int32)
-    fbits = (rs[K - 1][None, :] >> fshifts[:, None]) & 1
-    allbits = jnp.concatenate([bits, fbits], axis=0)       # [nsteps, B]
-    return packbits_msb(allbits[:framebits].T)
-
-
-def _regs_bytes(rs: jax.Array, framebits: int, ckpt: int,
-                gap: int, tail: int = C.TAIL_BITS,
-                offset: int = 0) -> jax.Array:
-    """Byte-granular assembly from survivor-register windows.
-
-    Each checkpoint register holds the last 32 survivor input bits, i.e.
-    its window *plus* >= 8 bits of the previous windows, so with
-    ckpt <= 24 every output byte lies entirely inside one register:
-    byte i = (rs[k_i] >> p_i) & 255 with static (k_i, p_i). One gather +
-    one shift — no [nsteps, B] bit expansion (that expansion measured
-    ~2.3 ms at B=4096, several times the walk itself).
-
-    ``offset`` skips a front-padded region: data bit t of the frame
-    lives at trellis step offset + t (acs_pallas.forward_regs
-    front_pad).
-    """
-    import numpy as np
-    assert ckpt <= 24
-    K, B = rs.shape
-    nsteps = offset + framebits + tail
-    nbytes = framebits // 8
-    i = np.arange(nbytes)
-    tend = offset + 8 * i + 7              # time of the byte's last bit
-    k = np.minimum(tend // ckpt, K - 1)
-    wend = np.where(k < K - 1, (k + 1) * ckpt - 1, nsteps - 1)
-    p = wend - tend                        # shift within register k
-    assert (p >= 0).all() and (p + 7 <= 31).all()
-    r = jnp.take(rs, jnp.asarray(k, dtype=jnp.int32), axis=0)
-    bytes_tm = (r >> jnp.asarray(p, dtype=jnp.int32)[:, None]) & 255
-    return bytes_tm.T.astype(jnp.uint8)
-
-
-def _tb_kernel(kc, K, Kp, ckpt, gap, anchor_ref, anchor_k_ref, reg_ref,
-               rs_ref, state):
-    """Checkpoint-walk grid step: ``kc`` checkpoints, newest first.
-    ``Kp >= K`` is the padded checkpoint count (rows >= K are garbage
-    the anchor injection at ``anchor_k <= K-1`` makes irrelevant).
-
-    anchor_ref: [1, bt] int32 anchor state per frame (0 for the
-    terminated trellis; best end state for tail-biting/streaming);
-    anchor_k_ref: [1, bt] int32 per-frame checkpoint index where the
-    anchor state is injected (K-1 for a whole-frame walk; an interior
-    index for streaming's overlap-truncated walk — rows above it carry
-    garbage the caller's emit window never reads);
-    reg_ref: [kc, 64, bt] int32 checkpoint registers (reverse-ordered
-    blocks); rs_ref: [kc, bt] gathered survivor registers (out); state:
-    [8, bt] int32 VMEM scratch, row 0 = current trellis state per frame.
-    """
-    bt = state.shape[1]
-    j = pl.program_id(1)
-
-    @pl.when(j == 0)
-    def _():
-        state[:] = jnp.broadcast_to(anchor_ref[0:1], state.shape)
-
-    # kc is static: unroll fully (static slices, state carried in vector
-    # registers) — a fori_loop body with dynamic slices measured ~2.5us
-    # per step, ~60x the ALU cost.
-    def select_state(reg, st):
-        # binary-tournament row select: 6 halving rounds of where()
-        # (~63 row-ops) instead of a one-hot mask + 64-row reduction
-        # (~5x the lane work; the walk is compute-bound, not DMA-bound)
-        r = reg
-        for bit in range(5, -1, -1):
-            half = r.shape[0] // 2
-            take_hi = ((st >> bit) & 1) != 0            # [1, bt]
-            r = jnp.where(take_hi, r[half:], r[:half])
-        return r                                        # [1, bt]
-
-    st = state[0:1]
-    out_rows = [None] * kc
-    for m in range(kc):
-        kl = kc - 1 - m                     # local row, newest first
-        k = (Kp - 1) - (j * kc + m)         # global checkpoint index
-        st = jnp.where(anchor_k_ref[0:1] == k, anchor_ref[0:1], st)
-        r = select_state(reg_ref[kl], st)   # [1, bt]
-        out_rows[kl] = r
-        shift = jnp.where(k == K - 1, gap, ckpt)
-        st = (r >> shift) & 63
-    state[0:1] = st
-    rs_ref[0] = jnp.concatenate(out_rows, axis=0)
-
-
-def _pick_kc(K: int, bt: int, budget: int = 3 * 2**20) -> int:
-    """Checkpoints per grid step: the most whose [kc, 64, bt] i32 block
-    fits the budget. K need NOT be a multiple — the launcher pads K up
-    with garbage rows the anchored walk never reads (before round 5 kc
-    had to divide K, and awkward K like 178 = 2*89 degraded to kc=2 —
-    89 tiny grid steps, measured ~4x the walk cost)."""
-    return max(1, min(K, budget // (64 * bt * 4)))
-
-
-def _run_tb_kernel(regs: jax.Array, K: int, ckpt: int, gap: int,
-                   anchor: jax.Array | None, anchor_k: jax.Array | None,
-                   b_tile: int, kc_budget: int,
-                   interpret: bool) -> jax.Array:
-    """Launch the checkpoint-walk kernel; returns rs int32[K, B].
-
-    ``anchor``: int32[B] anchor states (None = 0, terminated trellis);
-    ``anchor_k``: int32[B] per-frame checkpoint index where the anchor
-    injects (None = K-1, the whole-frame walk).
-    """
-    B = regs.shape[2]
-    bt = min(b_tile, max(128, ((B + 127) // 128) * 128))
-    Bp = ((B + bt - 1) // bt) * bt
-    if anchor is None:
-        anc = jnp.zeros((1, Bp), jnp.int32)
-    else:
-        anc = jnp.pad(anchor.astype(jnp.int32)[None, :],
-                      ((0, 0), (0, Bp - B)))
-    if anchor_k is None:
-        anck = jnp.full((1, Bp), K - 1, jnp.int32)
-    else:
-        anck = jnp.pad(anchor_k.astype(jnp.int32)[None, :],
-                       ((0, 0), (0, Bp - B)),
-                       constant_values=K - 1)
-    nbt = Bp // bt
-    kc = _pick_kc(K, bt, kc_budget)
-    Kp = -(-K // kc) * kc
-    if Bp != B or Kp != K:
-        # top rows (newest side, indices K..Kp-1) are zero padding: the
-        # walk passes through them before reaching the anchor injection
-        # at anchor_k <= K-1, so their garbage never affects the result
-        regs = jnp.pad(regs, ((0, Kp - K), (0, 0), (0, Bp - B)))
-    kb = Kp // kc
-    kernel = partial(_tb_kernel, kc, K, Kp, ckpt, gap)
-    rs = pl.pallas_call(
-        kernel,
-        grid=(nbt, kb),
-        in_specs=[pl.BlockSpec((1, bt), lambda i, j: (0, i),
-                               memory_space=pltpu.VMEM),
-                  pl.BlockSpec((1, bt), lambda i, j: (0, i),
-                               memory_space=pltpu.VMEM),
-                  pl.BlockSpec((kc, 64, bt),
-                               lambda i, j, _kb=kb: (_kb - 1 - j, 0, i),
-                               memory_space=pltpu.VMEM)],
-        out_specs=pl.BlockSpec((1, kc, bt),
-                               lambda i, j, _kb=kb: (_kb - 1 - j, 0, i),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((kb, kc, Bp), jnp.int32),
-        scratch_shapes=[pltpu.VMEM((8, bt), jnp.int32)],
-        interpret=interpret,
-    )(anc, anck, regs)
-    return rs.reshape(Kp, Bp)[:K, :B]
-
-
-@partial(jax.jit, static_argnames=("framebits", "ckpt", "b_tile",
-                                   "interpret", "kc_budget", "tail",
-                                   "wrap_last6", "offset"))
-def chainback_regs_pallas(regs: jax.Array, framebits: int, ckpt: int = 24,
-                          b_tile: int = 512, interpret: bool = False,
-                          kc_budget: int = 3 * 2**20,
-                          tail: int = C.TAIL_BITS,
-                          anchor: jax.Array | None = None,
-                          wrap_last6: bool = False,
-                          offset: int = 0) -> jax.Array:
-    """Pallas twin of ``chainback_regs``: the sequential checkpoint walk
-    runs in a kernel (fori_loop over checkpoints, binary-tournament
-    state select per step), eliminating the XLA scan's per-step dispatch
-    overhead — measured >5x faster end-to-end on one chip. Bit-exact vs
-    ``chainback_regs``.
-
-    ``tail``/``anchor`` generalize to tail-biting: ``tail=0`` decodes a
-    trellis of exactly ``framebits`` steps, anchored at ``anchor``
-    (int32[B] best end states) instead of the terminated state 0.
-
-    ``wrap_last6`` applies the tail-biting circular convention for the
-    final 6 data bits: golden emits data bit t >= framebits-6 from the
-    decision at wrapped step t+6-framebits, which equals bit
-    (framebits-1-t) of the survivor path's *start* state — NOT the
-    anchor register's low bits. The two differ exactly when the
-    best-metric path is not circularly consistent (e.g. on end-metric
-    ties), where the register low bits describe the path's own tail
-    while the convention dictates the wrapped head. Found by the
-    on-chip parity sweep (PARITY_TPU.json, round 3): 1/16 frames, one
-    bit, end-metric tie between states 48/49."""
-    nsteps = offset + framebits + tail
-    K, _, B = regs.shape
-    assert K == -(-nsteps // ckpt)
-    gap = nsteps - (K - 1) * ckpt
-
-    rs = _run_tb_kernel(regs, K, ckpt, gap, anchor, None, b_tile,
-                        kc_budget, interpret)
-    if ckpt <= 24:
-        out = _regs_bytes(rs, framebits, ckpt, gap, tail=tail,
-                          offset=offset)
-    else:
-        assert offset == 0
-        out = _regs_bits(rs, framebits, ckpt, gap)
-    if wrap_last6:
-        assert tail == 0 and framebits % 8 == 0
-        # survivor path's start state = the state the walk ends on:
-        # register at checkpoint 0 shifted past its own window
-        shift0 = ckpt if K > 1 else gap
-        state0 = (rs[0] >> shift0) & 63
-        last = (out[:, -1].astype(jnp.int32) & 0xC0) | state0
-        out = out.at[:, -1].set(last.astype(jnp.uint8))
-    return out
-
-
-def _tb_words_kernel(tc: int, wc: int, dec_ref, rs_ref, state):
-    """Serial decision-word walk, one time block per grid step.
-
-    dec_ref: [tc, 2, bt] int32 decision words (bit s of word s//32 =
-    decision for state s; reference layout viterbi.h:89-92), blocks
-    delivered newest-first; rs_ref: [1, tc//wc, bt] int32 decoded-bit
-    windows (out); state: [8, bt] int32 VMEM scratch, row 0 = current
-    trellis state per frame.
-
-    Fully unrolled over the block's ``tc`` steps (static row indices;
-    a fori_loop body with dynamic slices measured ~2.5 us/step in the
-    checkpoint walk — ~60x the ALU cost). Per step: pick the state's
-    word half, extract its decision bit with a per-lane variable
-    shift, hop to the predecessor, and OR the bit into its window
-    accumulator at a static position.
-    """
-    j = pl.program_id(1)
-
-    @pl.when(j == 0)
-    def _():
-        state[:] = jnp.zeros_like(state)   # terminated trellis: state 0
-
-    st = state[0:1]
-    nwin = tc // wc
-    accs = [None] * nwin
-    for m in range(tc):
-        r = tc - 1 - m                     # in-block row, newest first
-        wpair = dec_ref[r]                 # [2, bt]
-        w = jnp.where(st >= 32, wpair[1:2], wpair[0:1])
-        k = (w >> (st & 31)) & 1
-        st = (st >> 1) | (k << 5)
-        widx, i = divmod(r, wc)
-        bit = k << (wc - 1 - i)            # window bit, MSB = lowest t
-        accs[widx] = bit if accs[widx] is None else accs[widx] | bit
-    state[0:1] = st
-    rs_ref[0] = jnp.concatenate(accs, axis=0)
-
-
-def _words_time_chunk(framebits: int, wc: int, cap: int = 192) -> int:
-    """Largest multiple of ``wc`` dividing framebits, at most ``cap``
-    (the unroll bound: ~8 vector ops per step)."""
-    best = wc
-    for k in range(1, cap // wc + 1):
-        if framebits % (k * wc) == 0:
-            best = k * wc
-    return best
-
-
-@partial(jax.jit, static_argnames=("framebits", "b_tile", "interpret"))
-def chainback_words_pallas(decisions: jax.Array, framebits: int,
-                           b_tile: int = 512,
-                           interpret: bool = False) -> jax.Array:
-    """Pallas traceback over reference-layout decision words — the fast
-    traceback for the decisions-kernel (``pallas``) dispatch rung
-    (VERDICT r4 next #1: its chainback_blocked einsum composes kept the
-    rung below the x86 baseline).
-
-    ``decisions``: uint32[framebits+6, B, 2] (ops.acs layout). The walk
-    runs serially inside a kernel over time blocks (newest first),
-    emitting 24-bit windows of decoded data bits that ``_regs_bytes``
-    assembles — no [T, B, 64] predecessor maps, no einsum composes.
-    Bit-exact vs ``chainback_scan``; requires framebits % 24 == 0 (all
-    DAB shapes; other sizes use the blocked/scan fallbacks).
-    """
-    assert framebits % 24 == 0
-    T, B, _ = decisions.shape
-    assert T >= framebits + C.TAIL_BITS
-    wc = 24
-    tc = _words_time_chunk(framebits, wc)
-    nblk = framebits // tc
-    nwin = tc // wc
-
-    bt = min(b_tile, max(128, ((B + 127) // 128) * 128))
-    Bp = ((B + bt - 1) // bt) * bt
-    # rows 6..framebits+5 (data-bit rows; the first 6 trellis steps
-    # predate the frame), time-major [framebits, 2, Bp] int32
-    dec = jax.lax.bitcast_convert_type(
-        decisions[C.TAIL_BITS:C.TAIL_BITS + framebits], jnp.int32)
-    dec = dec.transpose(0, 2, 1)                   # [fb, 2, B]
-    if Bp != B:
-        dec = jnp.pad(dec, ((0, 0), (0, 0), (0, Bp - B)))
-    nbt = Bp // bt
-
-    kernel = partial(_tb_words_kernel, tc, wc)
-    rs = pl.pallas_call(
-        kernel,
-        grid=(nbt, nblk),
-        in_specs=[pl.BlockSpec((tc, 2, bt),
-                               lambda i, j, _n=nblk: (_n - 1 - j, 0, i),
-                               memory_space=pltpu.VMEM)],
-        out_specs=pl.BlockSpec((1, nwin, bt),
-                               lambda i, j, _n=nblk: (_n - 1 - j, 0, i),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((nblk, nwin, Bp), jnp.int32),
-        scratch_shapes=[pltpu.VMEM((8, bt), jnp.int32)],
-        interpret=interpret,
-    )(dec)
-    rs = rs.reshape(framebits // wc, Bp)
-    return _regs_bytes(rs[:, :B], framebits, wc, gap=wc, tail=0)
-
-
-@partial(jax.jit, static_argnames=("emit_bits", "ckpt", "b_tile",
-                                   "interpret", "kc_budget"))
-def chainback_regs_pallas_anchored(regs: jax.Array, anchor_k: jax.Array,
-                                   anchor_state: jax.Array,
-                                   emit_bits: int, ckpt: int,
-                                   b_tile: int = 512,
-                                   kc_budget: int = 3 * 2**20,
-                                   interpret: bool = False) -> jax.Array:
-    """Anchored checkpoint walk for block-overlapped streaming
-    (VERDICT r4 next #2: the streaming traceback was the slow XLA-scan
-    form — this runs the same binary-tournament Pallas walk as the
-    single-chip fast path, with the anchor injected at a traced
-    per-frame checkpoint index).
-
-    ``regs``: int32[K, 64, B] checkpoints of the extended (block +
-    overlap) region, ckpt | nsteps exactly; ``anchor_k``: int32[B]
-    checkpoint index where ``anchor_state`` (int32[B]) is injected;
-    checkpoints above it hold garbage the emit window never reads.
-    Emits the first ``emit_bits`` (multiple of 8) decoded bits:
-    uint8[B, emit_bits // 8]. Bit-exact vs the XLA-scan anchored walk
-    (parallel.streaming tests).
-    """
-    assert ckpt <= 24 and emit_bits % 8 == 0
-    K = regs.shape[0]
-    rs = _run_tb_kernel(regs, K, ckpt, ckpt, anchor_state, anchor_k,
-                        b_tile, kc_budget, interpret)
-    # windows end at (k+1)*ckpt over the full K*ckpt trellis; the tail
-    # argument extends the byte->window map past the emit region so the
-    # final emit byte indexes its true window (not a truncated one)
-    return _regs_bytes(rs, emit_bits, ckpt, gap=ckpt,
-                       tail=K * ckpt - emit_bits)
 
 
 @partial(jax.jit, static_argnames=("framebits", "block"))
@@ -515,12 +104,9 @@ def chainback_blocked(decisions: jax.Array, framebits: int,
 
     Implementation note: the in-block step axis is walked with scans
     over ``dynamic_index_in_dim`` (phase 1 forward, phase 3
-    ``reverse=True``) rather than ``flip(...).transpose(...)`` prologs —
-    this backend MISCOMPILES the fused 4D flip+transpose of the
-    [nblocks, block, B, 64] predecessor maps for B > 64
-    (deterministically wrong data; round-4 on-chip minimal reproducer,
-    see docs/KERNELS.md). The scan form avoids the op entirely and also
-    skips two full-tensor materializations.
+    ``reverse=True``) rather than ``flip(...).transpose(...)`` prologs,
+    which skips two full-tensor materializations of the
+    [nblocks, block, B, 64] predecessor maps.
     """
     assert framebits % block == 0
     nblocks = framebits // block
@@ -529,8 +115,7 @@ def chainback_blocked(decisions: jax.Array, framebits: int,
     # Decision words stay packed ([nblocks, block, B, 2] u32); each scan
     # step expands only its own [nblocks, B, 64] predecessor map — the
     # materialized full map ([framebits, B, 64] int32) costs 32x the
-    # decisions and hits HBM capacity at scale (19.3 GB at framebits
-    # 9216 x B=4096, measured round 4).
+    # decisions (19.3 GB at framebits 9216 x B=4096).
     dwords = decisions[C.TAIL_BITS:C.TAIL_BITS + framebits] \
         .astype(jnp.int32).reshape(nblocks, block, B, 2)
     states = jnp.arange(C.NUM_STATES, dtype=jnp.int32)
@@ -552,14 +137,11 @@ def chainback_blocked(decisions: jax.Array, framebits: int,
     # m_t0 . m_t0+1 . ... . m_t0+63 can accumulate either as
     # step . comp (reverse iteration) or comp . step (forward
     # iteration). The first indexes the fresh step map BY the
-    # accumulator — a data-dependent 64-way gather per element, which
-    # costs a [.., 64, 64] one-hot matmul on TPU (measured 15.8 ms per
-    # frame batch at B=1024, round 5; the take_along_axis lowering was
-    # 20x worse still, round 4). The second indexes the ACCUMULATOR by
-    # the step map m_t[s] = (s>>1)|(k<<5), which takes only the two
-    # STATIC positions s>>1 and (s>>1)+32 per output lane — so the
-    # whole compose is two static repeats and one select, no one-hot,
-    # no matmul: 2.9 ms for the same batch, bit-identical comp.
+    # accumulator — a data-dependent 64-way gather per element. The
+    # second indexes the ACCUMULATOR by the step map m_t[s] =
+    # (s>>1)|(k<<5), which takes only the two STATIC positions s>>1
+    # and (s>>1)+32 per output lane — so the whole compose is two
+    # static repeats and one select, no gather, bit-identical comp.
     def compose(comp, t):
         # comp: [nblocks, B, 64]; comp_new[s] = comp[m_t[s]]
         w = jax.lax.dynamic_index_in_dim(dwords, t, axis=1,

@@ -1,17 +1,20 @@
-"""Multi-host runtime initialization (the distributed-communication
+"""Multi-process runtime initialization (the distributed-communication
 backend slot of SURVEY.md §2.7 — the reference has none; here the
-backend is the JAX distributed runtime + XLA collectives over ICI/DCN).
+backend is the JAX distributed runtime + XLA collectives, which XLA
+hands to NCCL on GPUs).
 
-On a TPU pod slice each host runs the same program; ``initialize()``
-wires the hosts into one JAX runtime so ``jax.devices()`` spans the
-slice and the meshes built by ``parallel.mesh`` shard over every chip.
-Single-process environments (tests, one chip) are a no-op.
+With several processes each runs the same program; ``initialize()``
+wires them into one JAX runtime so ``jax.devices()`` spans every
+process and the meshes built by ``parallel.mesh`` shard over every
+device. Single-process environments (tests, one process driving all
+the cards of a host) are a no-op.
 
-Layout policy: the "data" axis (independent frames/subchannels) is laid
-out across hosts — it needs no communication, so DCN hops cost nothing.
-The "seq" axis (block-overlapped streaming, ppermute boundary metrics)
-should stay within a host's chips so boundary exchanges ride ICI:
-``make_pod_mesh`` builds exactly that layout.
+Layout policy: within one host the cards are joined all to all by
+NVLink, so a plain ``parallel.mesh.make_mesh`` fits any axis. Across
+hosts the "data" axis (independent frames/subchannels, no
+communication) should span the hosts and the "seq" axis
+(block-overlapped streaming, ppermute boundary metrics) stay within a
+host: ``make_multihost_mesh`` builds that layout.
 """
 
 from __future__ import annotations
@@ -26,8 +29,7 @@ _initialized = False
 
 # Environment markers that indicate a real multi-process launch (the
 # standard JAX cluster auto-detection inputs).
-_CLUSTER_ENV = ("COORDINATOR_ADDRESS", "JAX_COORDINATOR_ADDRESS",
-                "MEGASCALE_COORDINATOR_ADDRESS", "TPU_WORKER_HOSTNAMES")
+_CLUSTER_ENV = ("COORDINATOR_ADDRESS", "JAX_COORDINATOR_ADDRESS")
 
 
 def initialize(coordinator_address: str | None = None,
@@ -37,8 +39,8 @@ def initialize(coordinator_address: str | None = None,
     is active (more than one process).
 
     A misconfigured explicit coordinator RAISES rather than silently
-    degrading to single-process — a silent fallback would shard a pod
-    job onto one host and look like a perf bug. Only the genuinely
+    degrading to single-process — a silent fallback would shard a
+    multi-host job onto one host and look like a perf bug. Only the genuinely
     single-process case (no explicit args, no cluster environment) is
     a no-op.
     """
@@ -57,9 +59,9 @@ def initialize(coordinator_address: str | None = None,
     return jax.process_count() > 1
 
 
-def make_pod_mesh(n_seq_per_host: int = 1):
-    """[data, seq] mesh over the whole slice: seq contiguous within a
-    host (ICI), data spanning hosts (no-communication axis over DCN)."""
+def make_multihost_mesh(n_seq_per_host: int = 1):
+    """[data, seq] mesh over every process's devices: seq contiguous
+    within a host, data spanning hosts (the no-communication axis)."""
     devices = jax.devices()
     n_seq = n_seq_per_host
     n_data = len(devices) // n_seq

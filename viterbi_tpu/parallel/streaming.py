@@ -9,7 +9,7 @@ across the mesh's "seq" axis. Each device:
      ~5·K steps, so the resulting boundary metrics are effectively
      exact),
   2. hands those boundary metrics to its right neighbor with a
-     ``ppermute`` over the ICI ring,
+     ``ppermute`` over the device ring,
   3. re-runs ACS over its block *plus* an overlap region received from
      its right neighbor (symbols prefix, one more ``ppermute``), seeded
      with the received boundary metrics,
@@ -20,13 +20,11 @@ across the mesh's "seq" axis. Each device:
 
 Total communication: two ppermutes of [B, ...] tiles per stream,
 regardless of stream length. No reference analog exists (the DLL
-re-initializes metrics per 9216-bit frame); this is the TPU-native
-mechanism for streams ≫ MAX_FRAMEBITS.
+re-initializes metrics per 9216-bit frame); this is the mechanism for
+streams ≫ MAX_FRAMEBITS.
 """
 
 from __future__ import annotations
-
-import functools
 
 import jax
 import jax.numpy as jnp
@@ -36,17 +34,15 @@ from .. import constants as C
 from ..ops import acs, traceback as tb
 from . import mesh as mesh_mod
 
-# Overlap is the truncation-reliability knob: the measured sweep
-# (OVERLAP_SWEEP.json, scripts/overlap_sweep.py; 3.1 Mbit per cell at
-# 3072-bit blocks) shows streaming == whole-stream decode for overlap
-# >= 16 at the 3 dB DAB operating point, >= 48 at 1.5 dB, and >= 120 at
-# 0 dB. 120 costs 3.9% redundant compute per 3072-bit block and leaves
-# a wide margin below the operating point.
+# Overlap is the truncation-reliability knob: a bit-error sweep (3.1
+# Mbit per cell at 3072-bit blocks) showed streaming == whole-stream
+# decode for overlap >= 16 at the 3 dB DAB operating point, >= 48 at
+# 1.5 dB, and >= 120 at 0 dB. 120 costs 3.9% redundant compute per
+# 3072-bit block and leaves a wide margin below the operating point.
 DEFAULT_OVERLAP = 120  # steps; must be even and >= TAIL_BITS
 WARMUP_STEPS = 128     # pass-1 ACS length for boundary-metric estimation
-#   (same sweep artifact, warmup axis at overlap 120: 64 still leaves
-#   70 mismatched bits at 0 dB; 128 and 256 are both exactly clean —
-#   128 is the measured knee)
+#   (same sweep, warmup axis at overlap 120: 64 still left mismatched
+#   bits at 0 dB; 128 and 256 were both exactly clean)
 
 
 def _uniform_metrics(batch: int) -> jax.Array:
@@ -64,9 +60,6 @@ def _anchored_chainback(decisions, anchor_j, anchor_state, tb_steps: int,
     def step(state, inp):
         j, dec = inp
         state = jnp.where(j == anchor_j, anchor_state, state)
-        # elementwise select via tb._decision_bit — take_along_axis
-        # lowers to a per-element gather on XLA:TPU (~7x the walk,
-        # round-5 rung fix)
         k = tb._decision_bit(dec, state)
         return (state >> 1) | (k << 5), k
 
@@ -78,12 +71,11 @@ def _anchored_chainback(decisions, anchor_j, anchor_state, tb_steps: int,
     return tb.packbits_msb(body)
 
 
-def _plan_block_layout(blk: int, overlap, warmup, use_pallas: bool):
+def _plan_block_layout(blk: int, overlap, warmup):
     """Shared per-block layout planning for the sharded ring and the
-    single-device virtual ring: validate block granularity, clamp/round
-    the overlap, pick the checkpoint period and the warm-up length.
+    single-device virtual ring: validate block granularity, clamp the
+    overlap, pick the warm-up length. Returns ``(overlap, warm)``.
 
-    Returns ``(overlap, warm, ckpt)`` (ckpt None on the XLA path).
     Raises descriptive ValueErrors for blocks too small for the
     mechanism ("use more data bits per device").
     """
@@ -105,77 +97,27 @@ def _plan_block_layout(blk: int, overlap, warmup, use_pallas: bool):
             f"overlap {overlap} does not fit the {blk}-bit per-device "
             f"block; use more data bits per device or a smaller overlap")
     warm = min(WARMUP_STEPS if warmup is None else warmup, blk)
-    if not use_pallas:
-        return overlap, warm, None
-    # anchor times (blk + TAIL_BITS for the final block, blk + overlap
-    # elsewhere) must land on checkpoints
-    if blk % 6:
-        raise ValueError(
-            f"pallas streaming needs 6 | block bits (got {blk}); use "
-            f"more data bits per device or use_pallas=False")
-    ckpt = next(d for d in (24, 18, 12, 6)
-                if (blk + C.TAIL_BITS) % d == 0)
-    if ckpt > blk:
-        # e.g. blk=12 -> ckpt=18: the warm-up pass would otherwise die
-        # on an opaque nsteps % ckpt assert inside forward_regs
-        raise ValueError(
-            f"per-device block of {blk} bits is smaller than its "
-            f"checkpoint period {ckpt}; use more data bits per device")
-    overlap += (-(overlap - C.TAIL_BITS)) % ckpt   # ≡ TAIL (mod ckpt)
-    if overlap > blk:
-        if explicit:
-            raise ValueError(
-                f"overlap {overlap} (after checkpoint rounding) exceeds "
-                f"the {blk}-bit per-device block; use more data bits "
-                f"per device or a smaller overlap")
-        # default overlap: align DOWN instead (the clamp above may have
-        # landed between checkpoints)
-        overlap -= ckpt * (-(-(overlap - blk) // ckpt))
-        if overlap < C.TAIL_BITS:
-            raise ValueError(
-                f"per-device block of {blk} bits cannot fit any "
-                f"checkpoint-aligned overlap (ckpt {ckpt}); use more "
-                f"data bits per device")
-    warm = max(ckpt, warm - warm % ckpt)
-    return overlap, warm, ckpt
-
-
-def _auto_use_pallas() -> bool:
-    """Default the streaming fast path to Pallas on real TPU devices."""
-    try:
-        from ..ops import acs_pallas
-        return (acs_pallas.available()
-                and jax.devices()[0].platform == "tpu")
-    except Exception:
-        return False
+    return overlap, warm
 
 
 def make_stream_decoder(mesh, stream_bits: int,
                         overlap: int | None = None,
-                        use_pallas: bool | None = None,
-                        interpret: bool = False,
                         warmup: int | None = None):
     """Build a jitted sharded decoder for terminated streams of
     ``stream_bits`` data bits.
 
-    ``use_pallas=None`` selects the Pallas register-exchange fast path
-    automatically on TPU backends (the default in production).
-    ``overlap=None`` uses ``DEFAULT_OVERLAP``, clamped/aligned to fit
-    small per-device blocks; an explicit overlap that cannot fit
-    raises.
+    ``overlap=None`` uses ``DEFAULT_OVERLAP``, clamped to fit small
+    per-device blocks; an explicit overlap that cannot fit raises.
 
     Returns ``decode(symbols, tail_syms)`` where
       * ``symbols``: int32[B, 4*stream_bits] — the data-bit symbols,
       * ``tail_syms``: int32[B, 4*TAIL_BITS] — the flush-bit symbols,
     yielding uint8[B, stream_bits // 8] packed data bits.
     """
-    if use_pallas is None:
-        use_pallas = _auto_use_pallas()
     n_seq = mesh.shape[mesh_mod.SEQ_AXIS]
     assert stream_bits % n_seq == 0
     tb_block = stream_bits // n_seq
-    overlap, warm, ckpt = _plan_block_layout(tb_block, overlap, warmup,
-                                             use_pallas)
+    overlap, warm = _plan_block_layout(tb_block, overlap, warmup)
 
     right = [(d, d + 1) for d in range(n_seq - 1)]
     left = [(d, d - 1) for d in range(1, n_seq)]
@@ -188,88 +130,36 @@ def make_stream_decoder(mesh, stream_bits: int,
         is_first = d == 0
         is_last = d == n_seq - 1
 
-        if use_pallas:
-            # pack to one int32 per trellis step FIRST: the prefix
-            # ppermute then moves 4x fewer bytes over ICI, every
-            # slice/concat moves 4x less HBM, and the packed time-major
-            # layout feeds the kernel with no device transpose
-            # (unpacked glue measured ~35% of the local streaming
-            # decode at N=6144)
-            from ..ops import acs_pallas
-            fwd = functools.partial(acs_pallas.forward_regs, ckpt=ckpt,
-                                    packed=True, interpret=interpret)
-            ps = acs_pallas.pack_symbols(syms, tb_block)      # [blk, B]
-            warm_syms = ps[tb_block - warm:]
-            init1 = jnp.where(is_first,
-                              acs.init_metrics(B), _uniform_metrics(B))
-            if warm < tb_block:
-                _, bmetrics = fwd(warm_syms, warm, initial_metrics=init1)
-            else:
-                _, bmetrics = fwd(ps, tb_block, initial_metrics=init1)
-            recv_metrics = jax.lax.ppermute(bmetrics, mesh_mod.SEQ_AXIS,
-                                            right)
-            entry = jnp.where(is_first, acs.init_metrics(B),
-                              recv_metrics)
-            prefix = ps[:overlap]                       # [overlap, B]
-            recv_prefix = jax.lax.ppermute(prefix, mesh_mod.SEQ_AXIS,
-                                           left)
-            tail_ext = jnp.concatenate(
-                [acs_pallas.pack_symbols(tail_syms, C.TAIL_BITS),
-                 jnp.zeros((overlap - C.TAIL_BITS, B), jnp.int32)],
-                axis=0)
-            ext = jnp.where(is_last, tail_ext, recv_prefix)
-            full = jnp.concatenate([ps, ext], axis=0)   # [blk+ovl, B]
+        # (1) warm-up ACS over the block tail -> boundary metrics
+        init1 = jnp.where(is_first, acs.init_metrics(B), _uniform_metrics(B))
+        if warm < tb_block:
+            _, bmetrics = acs.forward(syms[:, -C.RATE * warm:], warm,
+                                      initial_metrics=init1)
         else:
-            fwd = acs.forward
-            # (1) warm-up ACS over the block tail -> boundary metrics
-            warm_syms = syms[:, -C.RATE * warm:]
-            init1 = jnp.where(is_first,
-                              acs.init_metrics(B), _uniform_metrics(B))
-            if warm < tb_block:
-                _, bmetrics = fwd(warm_syms, warm, initial_metrics=init1)
-            else:
-                _, bmetrics = fwd(syms, tb_block, initial_metrics=init1)
-            # (2) boundary metrics ride the ICI ring to the right
-            recv_metrics = jax.lax.ppermute(bmetrics, mesh_mod.SEQ_AXIS,
-                                            right)
-            entry = jnp.where(is_first, acs.init_metrics(B),
-                              recv_metrics)
-            # (3) overlap symbols from the right neighbor's prefix
-            prefix = syms[:, : C.RATE * overlap]
-            recv_prefix = jax.lax.ppermute(prefix, mesh_mod.SEQ_AXIS,
-                                           left)
-            tail_ext = jnp.concatenate(
-                [tail_syms,
-                 jnp.zeros((B, C.RATE * (overlap - C.TAIL_BITS)),
-                           syms.dtype)], axis=1)
-            ext = jnp.where(is_last, tail_ext, recv_prefix)
-            full = jnp.concatenate([syms, ext], axis=1)
+            _, bmetrics = acs.forward(syms, tb_block, initial_metrics=init1)
+        # (2) boundary metrics ride the ring to the right
+        recv_metrics = jax.lax.ppermute(bmetrics, mesh_mod.SEQ_AXIS, right)
+        entry = jnp.where(is_first, acs.init_metrics(B), recv_metrics)
+        # (3) overlap symbols from the right neighbor's prefix
+        prefix = syms[:, : C.RATE * overlap]
+        recv_prefix = jax.lax.ppermute(prefix, mesh_mod.SEQ_AXIS, left)
+        tail_ext = jnp.concatenate(
+            [tail_syms,
+             jnp.zeros((B, C.RATE * (overlap - C.TAIL_BITS)), syms.dtype)],
+            axis=1)
+        ext = jnp.where(is_last, tail_ext, recv_prefix)
+        full = jnp.concatenate([syms, ext], axis=1)
+        hist, fmetrics = acs.forward(full, tb_block + overlap,
+                                     initial_metrics=entry)
 
-        hist, fmetrics = fwd(full, tb_block + overlap,
-                             initial_metrics=entry)
-
-        # (4) anchored traceback; final block anchors the terminated end
+        # (4) anchored traceback; the final block anchors the terminated
+        # end at state 0, the others at their best end state
         best = jnp.argmin(fmetrics, axis=1).astype(jnp.int32)
         anchor_state = jnp.where(is_last, jnp.zeros_like(best), best)
-        if use_pallas:
-            # hist = register checkpoints [K, 64, B]; anchor by index.
-            # The walk is the same Pallas binary-tournament kernel as
-            # the single-chip fast path (anchor injected at a traced
-            # checkpoint) — the XLA-scan walk it replaces cost ~5x
-            # (VERDICT r4 next #2).
-            anchor_k = jnp.where(is_last,
-                                 (tb_block + C.TAIL_BITS) // ckpt - 1,
-                                 (tb_block + overlap) // ckpt - 1)
-            out = tb.chainback_regs_pallas_anchored(
-                hist, jnp.broadcast_to(anchor_k, (B,)), anchor_state,
-                tb_block, ckpt, interpret=interpret)
-        else:
-            # hist = decision words [T, B, 2]; anchor by step index
-            anchor_j = jnp.where(is_last,
-                                 tb_block + C.TAIL_BITS - 1,
-                                 tb_block + overlap - 1)
-            out = _anchored_chainback(hist, anchor_j, anchor_state,
-                                      tb_block + overlap, tb_block)
+        anchor_j = jnp.where(is_last, tb_block + C.TAIL_BITS - 1,
+                             tb_block + overlap - 1)
+        out = _anchored_chainback(hist, anchor_j, anchor_state,
+                                  tb_block + overlap, tb_block)
         return out[:, None, :]   # [B, 1, tb_block // 8]
 
     sharded = jax.shard_map(
@@ -277,7 +167,9 @@ def make_stream_decoder(mesh, stream_bits: int,
         in_specs=(P(mesh_mod.DATA_AXIS, mesh_mod.SEQ_AXIS, None),
                   P(mesh_mod.DATA_AXIS, None)),
         out_specs=P(mesh_mod.DATA_AXIS, mesh_mod.SEQ_AXIS, None),
-        check_vma=False)  # pallas_call outputs carry no vma info
+        # the scan carries mix seq-varying entry metrics with
+        # data-varying symbols; the body is per-shard by construction
+        check_vma=False)
 
     @jax.jit
     def decode(symbols, tail_syms):
@@ -292,18 +184,16 @@ def make_stream_decoder(mesh, stream_bits: int,
 
 def make_local_stream_decoder(stream_bits: int, n_blocks: int,
                               overlap: int | None = None,
-                              use_pallas: bool | None = None,
-                              interpret: bool = False,
                               warmup: int | None = None):
     """Single-device block-overlapped streaming: the same warm-up /
     boundary-metric / overlap-truncation mechanism as the sharded ring,
     but with the ``n_blocks`` time blocks folded into the batch axis of
     ONE device and the "ring" exchanges becoming batch-axis shifts.
 
-    This is how ONE chip decodes a stream ≫ MAX_FRAMEBITS without the
+    This is how ONE device decodes a stream ≫ MAX_FRAMEBITS without the
     serial T-step trellis: all blocks' ACS runs in parallel as a
     (B * n_blocks)-frame batch (the decoder's sequential dependence is
-    broken by the same 5K-step forgetting property the multi-chip ring
+    broken by the same 5K-step forgetting property the multi-device ring
     exploits). No reference analog — the DLL walks long streams
     serially per 9216-bit frame with metric resets at every boundary
     (deconvolve.cpp:97-100).
@@ -312,21 +202,9 @@ def make_local_stream_decoder(stream_bits: int, n_blocks: int,
       * ``symbols``: int[B, 4*stream_bits], ``tail_syms``: int[B, 4*6]
       -> uint8[B, stream_bits // 8].
     """
-    if use_pallas is None:
-        use_pallas = _auto_use_pallas()
     assert stream_bits % n_blocks == 0
     blk = stream_bits // n_blocks
-    overlap, warm, ckpt = _plan_block_layout(blk, overlap, warmup,
-                                             use_pallas)
-
-    def _fwd(syms, nsteps, init, packed=False):
-        if use_pallas:
-            from ..ops import acs_pallas
-            return acs_pallas.forward_regs(syms, nsteps, ckpt=ckpt,
-                                           initial_metrics=init,
-                                           packed=packed,
-                                           interpret=interpret)
-        return acs.forward(syms, nsteps, initial_metrics=init)
+    overlap, warm = _plan_block_layout(blk, overlap, warmup)
 
     @jax.jit
     def decode(symbols, tail_syms):
@@ -337,51 +215,23 @@ def make_local_stream_decoder(stream_bits: int, n_blocks: int,
         init1 = jnp.where(first[:, None], acs.init_metrics(N),
                           _uniform_metrics(N))
 
-        if use_pallas:
-            # pack to one int32 per trellis step FIRST: every later
-            # slice/shift/concat then moves 4x fewer bytes, and the
-            # packed time-major layout feeds the kernel with no device
-            # transpose (unpacked glue measured ~35% of the whole
-            # streaming decode at N=6144: pure HBM traffic)
-            from ..ops import acs_pallas
-            ps = acs_pallas.pack_symbols(symbols, stream_bits)   # [T, B]
-            ps = ps.reshape(n_blocks, blk, B).transpose(1, 2, 0) \
-                .reshape(blk, N)                # [blk, N], col = b*nb+d
-            ptail = acs_pallas.pack_symbols(tail_syms, C.TAIL_BITS)
-            warm_syms = ps[blk - warm:]
-            prefix = ps[:overlap]               # [overlap, N]
-            nxt = jnp.roll(prefix.reshape(overlap, B, n_blocks), -1,
-                           axis=2).reshape(overlap, N)
-            tail_ext = jnp.concatenate(
-                [jnp.repeat(ptail, n_blocks, axis=1),
-                 jnp.zeros((overlap - C.TAIL_BITS, N), jnp.int32)],
-                axis=0)
-            ext = jnp.where(last[None, :], tail_ext, nxt)
-            full = jnp.concatenate([ps, ext], axis=0)   # [blk+ovl, N]
-            packed = True
-        else:
-            blocks = symbols.astype(jnp.int32).reshape(
-                B, n_blocks, C.RATE * blk)
-            flat = blocks.reshape(N, C.RATE * blk)
-            warm_syms = flat[:, -C.RATE * warm:]
-            prefix = flat[:, : C.RATE * overlap]
-            nxt = jnp.roll(prefix.reshape(B, n_blocks, -1), -1, axis=1) \
-                .reshape(N, -1)
-            tail_ext = jnp.concatenate(
-                [jnp.repeat(tail_syms.astype(jnp.int32), n_blocks,
-                            axis=0),
-                 jnp.zeros((N, C.RATE * (overlap - C.TAIL_BITS)),
-                           jnp.int32)], axis=1)
-            ext = jnp.where(last[:, None], tail_ext, nxt)
-            full = jnp.concatenate([flat, ext], axis=1)
-            packed = False
+        flat = symbols.astype(jnp.int32).reshape(N, C.RATE * blk)
+        prefix = flat[:, : C.RATE * overlap]
+        nxt = jnp.roll(prefix.reshape(B, n_blocks, -1), -1, axis=1) \
+            .reshape(N, -1)
+        tail_ext = jnp.concatenate(
+            [jnp.repeat(tail_syms.astype(jnp.int32), n_blocks, axis=0),
+             jnp.zeros((N, C.RATE * (overlap - C.TAIL_BITS)), jnp.int32)],
+            axis=1)
+        ext = jnp.where(last[:, None], tail_ext, nxt)
+        full = jnp.concatenate([flat, ext], axis=1)
 
         # (1) warm-up ACS over each block's tail -> boundary metrics
         if warm < blk:
-            _, bmet = _fwd(warm_syms, warm, init1, packed=packed)
+            _, bmet = acs.forward(flat[:, -C.RATE * warm:], warm,
+                                  initial_metrics=init1)
         else:
-            _, bmet = _fwd(full[:blk] if packed else flat, blk, init1,
-                           packed=packed)
+            _, bmet = acs.forward(flat, blk, initial_metrics=init1)
 
         # (2) "ring": block d's entry metrics come from block d-1 — a
         # batch-axis shift instead of a ppermute
@@ -390,32 +240,21 @@ def make_local_stream_decoder(stream_bits: int, n_blocks: int,
         entry = jnp.where(first[:, None], acs.init_metrics(N), shifted)
 
         # (3) full-block ACS over block + overlap from the entry metrics
-        hist, fmet = _fwd(full, blk + overlap, entry, packed=packed)
+        hist, fmet = acs.forward(full, blk + overlap, initial_metrics=entry)
 
         # (4) anchored traceback, overlap truncation
         best = jnp.argmin(fmet, axis=1).astype(jnp.int32)
         anchor_state = jnp.where(last, jnp.zeros_like(best), best)
-        if use_pallas:
-            anchor_k = jnp.where(last,
-                                 (blk + C.TAIL_BITS) // ckpt - 1,
-                                 (blk + overlap) // ckpt - 1)
-            out = tb.chainback_regs_pallas_anchored(
-                hist, anchor_k, anchor_state, blk, ckpt,
-                interpret=interpret)
-        else:
-            anchor_j = jnp.where(last, blk + C.TAIL_BITS - 1,
-                                 blk + overlap - 1)
-            out = _anchored_chainback(hist, anchor_j, anchor_state,
-                                      blk + overlap, blk)
+        anchor_j = jnp.where(last, blk + C.TAIL_BITS - 1, blk + overlap - 1)
+        out = _anchored_chainback(hist, anchor_j, anchor_state,
+                                  blk + overlap, blk)
         return out.reshape(B, stream_bits // 8)
 
     return decode
 
 
 def decode_stream(symbols, framebits: int, mesh=None,
-                  overlap: int | None = None,
-                  use_pallas: bool | None = None, interpret: bool = False,
-                  warmup: int | None = None):
+                  overlap: int | None = None, warmup: int | None = None):
     """Convenience wrapper: ``symbols`` int[B, 4*(framebits+6)] for a
     terminated stream; splits data/tail symbols and decodes sharded."""
     if mesh is None:
@@ -425,5 +264,4 @@ def decode_stream(symbols, framebits: int, mesh=None,
     tail_syms = symbols[:, C.RATE * framebits: C.RATE * (framebits
                                                          + C.TAIL_BITS)]
     return make_stream_decoder(mesh, framebits, overlap,
-                               use_pallas=use_pallas, interpret=interpret,
                                warmup=warmup)(data_syms, tail_syms)

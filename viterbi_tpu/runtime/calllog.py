@@ -121,7 +121,7 @@ def _summary_text_locked() -> str:
             f"..{s['max_bytes']} B\n")
         seen = s.get("_addr_seen")
         if seen:
-            # buffer identity churn — the TPU-host analog of the
+            # buffer identity churn — the host-side analog of the
             # reference's min/max buffer-ADDRESS tracking
             # (deconvolve.cpp:625-628, dllmain.cpp:325-357): how many
             # distinct host arrays callers pass (1 = buffer reuse,

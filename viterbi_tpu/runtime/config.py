@@ -12,9 +12,9 @@ Semantics preserved:
   * the auto-tuner (harness.benchmark) writes the fastest variant's
     index into byte 0 (viterbi-benchmark.cpp:584-602).
 
-TPU-specific extension: optional ``key=value`` lines after the first
-(traceback block size, batch tile, decision packing) — unknown keys are
-ignored so the file stays forward-compatible.
+Extension: optional ``key=value`` lines after the first (traceback
+block size, call logging, compile cache) — unknown keys are ignored so
+the file stays forward-compatible.
 """
 
 from __future__ import annotations
@@ -30,19 +30,21 @@ a:0
 #
 # Line 1, byte 0: decoder variant override.
 #   '0'..'4' force a variant index (see `viterbi_tpu.runtime.dispatch`
-#   VARIANTS; downgrades always honored, upgrades only if supported),
-#   any other character = automatic selection.
+#   VARIANTS: 0 jax_scan, 1 jax_blocked, 2 retired, 3 cuda_fused,
+#   4 auto_best; downgrades always honored, an index this backend has
+#   no kernel for keeps the automatic choice), any other character =
+#   automatic selection.
 # Line 1, byte 2: '1' prints the chosen variant at initialize().
 #
 # Optional key=value lines (defaults shown):
 # traceback_block=64
 # log_calls=0
 # log_symbols=0
-# interpret=0   (run Pallas kernels in interpreter mode on non-TPU
-#                backends — enables variants 2/3 under CPU CI)
 # compile_cache=1  (persist XLA compilations across processes so a
 #                   receiver restart skips recompilation; set 0 to
-#                   disable or a path to relocate the cache)
+#                   disable or a path to relocate the cache; the
+#                   default is <repo>/.jax_cache, and a set
+#                   JAX_COMPILATION_CACHE_DIR overrides this key)
 """
 
 
@@ -56,9 +58,10 @@ def default_path() -> str:
 
 
 def default_compile_cache_dir() -> str:
-    base = os.environ.get("XDG_CACHE_HOME",
-                          os.path.join(os.path.expanduser("~"), ".cache"))
-    return os.path.join(base, "viterbi_tpu", "xla")
+    """``.jax_cache`` at the repository root (a fixed path: the path is
+    part of the cache's key)."""
+    return os.path.abspath(os.path.join(os.path.dirname(__file__), "..",
+                                        "..", ".jax_cache"))
 
 
 @dataclass
@@ -68,7 +71,6 @@ class Config:
     traceback_block: int = 64
     log_calls: bool = False
     log_symbols: bool = False
-    interpret: bool = False        # Pallas interpreter mode off-TPU
     # persistent XLA compilation cache: "" disables, otherwise a dir
     compile_cache: str = field(default_factory=default_compile_cache_dir)
     path: str = field(default_factory=default_path)
@@ -113,8 +115,6 @@ def load(path: str | None = None) -> Config:
             cfg.log_calls = val not in ("0", "false", "")
         elif key == "log_symbols":
             cfg.log_symbols = val not in ("0", "false", "")
-        elif key == "interpret":
-            cfg.interpret = val not in ("0", "false", "")
         elif key == "compile_cache":
             if val.lower() in ("0", "false", "no", ""):
                 cfg.compile_cache = ""

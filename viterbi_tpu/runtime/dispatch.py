@@ -3,10 +3,11 @@ CPU dispatcher (setupdll.cpp:195-270, viterbi_helpers.asm:48-157).
 
 Where the reference probes CPUID/xgetbv and picks the best of five SIMD
 kernels behind a function pointer (``deconJumpTarget``), we probe the
-JAX backend (platform, device count, Pallas availability) and pick the
-best decoder *variant*. Override semantics match the reference: a config
-override is honored only "downward-compatible" — forcing a variant the
-backend can't run falls back to the best supported one
+JAX backend (platform, GPU generation, device count) and pick the best
+decoder *variant*. This module is the one place that decides which
+decode kernel runs; every caller asks it. Override semantics match the
+reference: a config override is honored only "downward-compatible" —
+forcing a variant the backend can't run keeps the automatic choice
 (setupdll.cpp:220-236).
 
 The jump target is re-armed by ``initialize()`` and latched to a
@@ -17,6 +18,7 @@ safe-mode stub by the fault handler (runtime.faults), mirroring
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import jax
 
@@ -25,44 +27,32 @@ from . import config as config_mod
 # Capability bits (analog of getcpucaps.h:29-38).
 CAP_JAX = 1 << 0          # basic jitted decode available
 CAP_BLOCKED_TB = 1 << 1   # block-parallel traceback
-CAP_PALLAS = 1 << 2       # Pallas TPU kernels
-CAP_TPU = 1 << 3          # running on real TPU hardware
+CAP_FUSED = 1 << 2        # fused CUDA decode kernel (Hopper, sm_90)
+CAP_GPU = 1 << 3          # running on an NVIDIA GPU
 CAP_MULTI_DEVICE = 1 << 4  # >1 addressable device (sharded decode)
 
 # Variant table, "weakest" to "strongest" (analog of the SSE2..AVX512
 # ladder). Index is what the config file's byte 0 selects.
 VARIANTS = (
-    "jax_scan",      # 0: pure-JAX ACS + serial-scan traceback
-    "jax_blocked",   # 1: pure-JAX ACS + block-parallel traceback
-    "pallas",        # 2: Pallas decisions-kernel ACS + blocked traceback
-    "pallas_fused",  # 3: Pallas register-exchange ACS + checkpoint walk
-    "auto_best",     # 4: alias: measured-fastest (auto-tuner result)
+    "jax_scan",      # 0: XLA ACS + serial-scan traceback
+    "jax_blocked",   # 1: XLA ACS + block-parallel traceback
+    "retired",       # 2: no kernel on any platform (keeps auto choice)
+    "cuda_fused",    # 3: fused ACS + traceback CUDA kernel (Hopper)
+    "auto_best",     # 4: alias: the best supported variant
 )
 
 
-def get_caps(interpret: bool = False) -> int:
-    """Probe backend capabilities. Analog of GetCPUCaps.
-
-    ``interpret`` (config key ``interpret=1``) grants CAP_PALLAS on
-    non-TPU backends by running Pallas kernels in interpreter mode —
-    the CI escape hatch that lets the real dispatch->Pallas path
-    execute without TPU hardware.
-    """
+def get_caps() -> int:
+    """Probe backend capabilities. Analog of GetCPUCaps. A backend that
+    fails to initialize raises: it is never reported as "no devices"."""
     caps = CAP_JAX | CAP_BLOCKED_TB
-    try:
-        devices = jax.devices()
-    except Exception:
-        return 0
-    platform = devices[0].platform if devices else "none"
-    if platform == "tpu":
-        caps |= CAP_TPU | CAP_PALLAS
-    elif interpret:
-        try:
-            from ..ops import acs_pallas
-            if acs_pallas.available():
-                caps |= CAP_PALLAS
-        except Exception:
-            pass
+    devices = jax.devices()
+    dev = devices[0]
+    if dev.platform == "gpu":
+        caps |= CAP_GPU
+        # the kernel is built for sm_90a: Hopper only
+        if str(getattr(dev, "compute_capability", "")).startswith("9."):
+            caps |= CAP_FUSED
     if len(devices) > 1:
         caps |= CAP_MULTI_DEVICE
     return caps
@@ -71,20 +61,23 @@ def get_caps(interpret: bool = False) -> int:
 def _variant_supported(index: int, caps: int) -> bool:
     if index in (0, 1):
         return bool(caps & CAP_JAX)
-    if index in (2, 3):
-        return bool(caps & CAP_PALLAS)
-    if index == 4:
-        return True
-    return False
+    if index == 3:
+        return bool(caps & CAP_FUSED)
+    return index == 4
 
 
 def _best_variant(caps: int) -> int:
-    # pallas_fused (register-exchange, no decisions array) is the
-    # measured-fastest path on TPU (docs/KERNELS.md)
+    # cuda_fused: one kernel launch per batch, measured faster than the
+    # XLA loop on the H100 (docs/KERNELS.md)
     for index in (3, 1, 0):
         if _variant_supported(index, caps):
             return index
     return 0
+
+
+def best_variant() -> str:
+    """Name of the best variant this backend supports."""
+    return VARIANTS[_best_variant(get_caps())]
 
 
 @dataclasses.dataclass
@@ -96,6 +89,7 @@ class DispatchState:
     """
     caps: int = 0
     variant: int = 0
+    ready: bool = False         # setup() has run
     safe_mode: bool = False     # latched by faults, cleared by initialize()
     except_counter: int = 0
     config: config_mod.Config = dataclasses.field(
@@ -109,23 +103,29 @@ def state() -> DispatchState:
     return _STATE
 
 
-def _apply_compile_cache(cfg: config_mod.Config) -> None:
-    """Enable JAX's persistent compilation cache (config key
-    ``compile_cache``) unless the process already configured one — the
-    cross-restart half of WakeUpYMM's job: a receiver restart re-hits
-    every compiled decode shape instead of re-paying multi-second XLA
-    compiles."""
+def variant() -> str:
+    """Name of the selected variant (configuring on first use)."""
+    if not _STATE.ready:
+        setup()
+    return VARIANTS[_STATE.variant]
+
+
+def apply_compile_cache(cfg: config_mod.Config | None = None) -> None:
+    """Point JAX's persistent compilation cache at one directory, so a
+    restart re-hits every compiled decode shape (the cross-restart half
+    of WakeUpYMM's job). ``JAX_COMPILATION_CACHE_DIR``, when set, wins
+    and nothing else is set; otherwise a directory the process already
+    chose is kept; otherwise the config's ``compile_cache`` (default
+    ``<repo>/.jax_cache``) is used, and an empty value disables it."""
+    if os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+        return
+    if jax.config.jax_compilation_cache_dir:
+        return
+    cfg = cfg or config_mod.load()
     if not cfg.compile_cache:
         return
-    try:
-        import os
-
-        if jax.config.jax_compilation_cache_dir:
-            return  # user/process already chose a cache; keep it
-        os.makedirs(cfg.compile_cache, exist_ok=True)
-        jax.config.update("jax_compilation_cache_dir", cfg.compile_cache)
-    except Exception:
-        pass  # cache is an optimization; never fail setup over it
+    os.makedirs(cfg.compile_cache, exist_ok=True)
+    jax.config.update("jax_compilation_cache_dir", cfg.compile_cache)
 
 
 def setup(config_path: str | None = None) -> DispatchState:
@@ -133,22 +133,22 @@ def setup(config_path: str | None = None) -> DispatchState:
     variant. Analog of SetupDLL + SetupCpuDispatcher (setupdll.cpp:57-270).
     """
     cfg = config_mod.load(config_path)
-    _apply_compile_cache(cfg)
-    caps = get_caps(interpret=cfg.interpret)
+    apply_compile_cache(cfg)
+    caps = get_caps()
     best = _best_variant(caps)
-    variant = best
-    if 0 <= cfg.variant_override <= 4:
-        if cfg.variant_override == 4:
-            variant = best
-        elif _variant_supported(cfg.variant_override, caps):
-            variant = cfg.variant_override  # downgrade always honored
-        # unsupported upgrade request: keep automatic choice
+    variant_index = best
+    if 0 <= cfg.variant_override <= 3 \
+            and _variant_supported(cfg.variant_override, caps):
+        variant_index = cfg.variant_override  # downgrade always honored
+    # '4' and unsupported upgrade requests keep the automatic choice
     _STATE.caps = caps
-    _STATE.variant = variant
+    _STATE.variant = variant_index
     _STATE.config = cfg
     _STATE.safe_mode = False
+    _STATE.ready = True
     if cfg.show_info:
-        print(f"[viterbi_tpu] variant={VARIANTS[variant]} caps=0x{caps:x}")
+        print(f"[viterbi_tpu] variant={VARIANTS[variant_index]} "
+              f"caps=0x{caps:x}")
     return _STATE
 
 

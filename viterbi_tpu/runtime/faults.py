@@ -4,8 +4,8 @@ SURVEY.md §5).
 
 The reference survives access violations and stack overflows inside its
 kernels by binary-patching the fault away and latching the dispatcher to
-a safe no-op decoder until ``initialize()`` re-arms it. The TPU-native
-equivalents are:
+a safe no-op decoder until ``initialize()`` re-arms it. The equivalents
+here are:
 
   * input validation before dispatch, split into two classes the way
     the reference's address-range attribution splits faults

@@ -1,9 +1,10 @@
 """ctypes bindings for the native host runtime (native/vitio.cpp).
 
-Auto-builds ``libvitio.so`` with the repo Makefile on first use if a
-compiler is available; every entry point has a NumPy fallback so the
-framework works without the native library (the dispatcher's capability
-probe reports which is active).
+Runs the repo Makefile (``make -C native``) once per process on first
+use, which rebuilds ``libvitio.so`` when ``vitio.cpp`` is newer and is a
+no-op otherwise, so a stale library is never loaded. Every entry point
+has a NumPy fallback, so the framework works where no compiler or
+``make`` is available (``have_native()`` reports which is active).
 """
 
 from __future__ import annotations
@@ -20,22 +21,22 @@ _LIB_PATH = os.path.abspath(os.path.join(_NATIVE_DIR, "libvitio.so"))
 
 _lib = None
 _lib_lock = threading.Lock()
-_build_attempted = False
+_built = None          # make's outcome, once per process
 
 
 def _load():
-    global _lib, _build_attempted
+    global _lib, _built
     with _lib_lock:
         if _lib is not None:
             return _lib
-        if not os.path.exists(_LIB_PATH) and not _build_attempted:
-            _build_attempted = True
+        if _built is None:
             try:
                 subprocess.run(["make", "-C", os.path.abspath(_NATIVE_DIR)],
                                capture_output=True, timeout=120, check=True)
-            except Exception:
-                return None
-        if not os.path.exists(_LIB_PATH):
+                _built = True
+            except (OSError, subprocess.SubprocessError):
+                _built = False
+        if not _built:
             return None
         try:
             lib = ctypes.CDLL(_LIB_PATH)

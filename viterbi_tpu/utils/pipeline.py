@@ -1,9 +1,9 @@
 """Host→device ingestion pipeline: keep the chip fed while the host
 packs the next batch (SURVEY.md §7.3 "Host ingestion").
 
-The reference receives symbols as in-process pointers from QIRX; a TPU
-consumes batches at a rate where host packing + transfer must overlap
-device compute. JAX's dispatch is asynchronous, so the recipe is to
+The reference receives symbols as in-process pointers from QIRX; an
+accelerator consumes batches at a rate where host packing + transfer
+must overlap device compute. JAX's dispatch is asynchronous, so the recipe is to
 keep a bounded window of in-flight batches and only synchronize on the
 oldest one:
 
